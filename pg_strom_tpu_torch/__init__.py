@@ -1,0 +1,31 @@
+"""pg_strom_tpu_torch — the PyTorch/CUDA port of pg_strom_tpu.
+
+The JAX package (`pg_strom_tpu/`) stays the reference; this package grows
+beside it slice by slice, main path first, and imports `torch` but never
+`jax`.  Host-only modules are copied from the reference (importing any
+`pg_strom_tpu` module would import jax); each TPU Pallas kernel becomes a
+hand-written Hopper kernel with a plain PyTorch version beside it.
+
+The first slice is the grouped pre-aggregation of one table:
+`sql.execute` -> `plan/planner._run_agg` -> `exec/preagg_exec.PreAggExecutor`
+-> the v2 plan of `ops/preagg_fused2.derive_v2_plan` -> the CUDA kernel in
+`ops/cuda/preagg_fused2.cu` -> host absorb, merge and finalize.  Plan
+routes whose executors are not ported yet raise NotImplementedError naming
+their ROADMAP item.
+
+The device is explicit (`config.device`, default "cuda"): with "cuda" and
+no GPU the port raises; "cpu" runs the kernels' plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+from .config import config, set_config, get_config, show_all, override  # noqa: F401
+from .sqltypes import T  # noqa: F401
+from .datastore import (  # noqa: F401
+    Table, Column, Chunk, Database, column_from_values, column_from_numpy,
+    from_reference,
+)
+from .errors import SqlError, CpuReCheck  # noqa: F401
+# the SQL entry points; importing them here also loads sql -> plan in the
+# order their mutual imports need
+from .sql import execute, explain  # noqa: F401,E402

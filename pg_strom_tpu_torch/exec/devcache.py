@@ -1,0 +1,216 @@
+"""Device-resident columnar chunk cache — the tcache analog.
+
+Reference: deadcode/tcache.c (a columnar cache so repeated scans skip
+per-tuple deforming) and pg_strom_tpu/exec/devcache.py.  The datastore is
+columnar at rest, so the cost the cache removes is per-query host slicing
+/ padding and the host->device copy: chunk planes are uploaded once as
+torch tensors on `config.device` and reused by every later query over the
+same columns.
+
+  - Keyed by the Column identities (Column.uid) and the device, not the
+    Table: the planner re-wraps tables per query but shares Columns.
+  - LRU eviction bounded by `config.tcache_size_mb`; entries whose Columns
+    were garbage collected are swept on access.
+  - Chunks whose rows need host recheck (numeric outside the device
+    window) carry planes=None — the executor replays them host-exactly.
+  - Tables that would not fit in the budget stream: each chunk uploads,
+    runs and is freed, uncached.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import weakref
+from collections import OrderedDict
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import config
+from ..datastore import Table, Chunk
+from ..expr.lower_torch import planes_of_column
+
+
+def device() -> torch.device:
+    """The configured execution device.  "cuda" with no GPU raises — the
+    port never runs on the CPU unless told to (config.device = "cpu")."""
+    d = torch.device(config.device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "config.device is 'cuda' but torch.cuda.is_available() is "
+            "False; set config.device = 'cpu' to run the plain PyTorch "
+            "versions of the kernels")
+    return d
+
+
+def _next_pow2(n: int, lo: int = 1024) -> int:
+    p = lo
+    while p < n:
+        p <<= 1
+    return p
+
+
+def chunk_capacity(nrows: int) -> int:
+    """Canonical chunk capacity for a table: one shared value across the
+    executors so they share cache entries."""
+    return min(config.chunk_rows, _next_pow2(max(nrows, 1)))
+
+
+def fetch_host(tree):
+    """Device->host read of a result tree: every tensor leaf to numpy in
+    one `.cpu()` pass (which waits for the device); other leaves as is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: fetch_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fetch_host(v) for v in tree)
+    return tree
+
+
+def _upload(planes: tuple, dev: torch.device) -> tuple:
+    return tuple(torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                 for p in planes)
+
+
+@dataclasses.dataclass
+class CachedChunk:
+    """One resident (or streamed) chunk: static metadata + device planes."""
+
+    table_name: str
+    start: int
+    nrows: int
+    capacity: int
+    recheck_any: bool
+    planes: Optional[tuple]      # per-column plane tuples; None => host path
+
+    def host_chunk(self, table: Table) -> Chunk:
+        """(Re)build the host-side padded chunk, e.g. for CPU replay."""
+        return Chunk.from_table(table, self.start, self.start + self.nrows,
+                                self.capacity)
+
+
+@dataclasses.dataclass
+class _Entry:
+    chunks: list[CachedChunk]
+    nbytes: int
+    col_refs: list               # weakrefs keeping eviction honest
+    hits: int = 0
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self.col_refs)
+
+
+class DeviceChunkCache:
+    def __init__(self) -> None:
+        self._lru: "OrderedDict[tuple, _Entry]" = OrderedDict()
+        # every LRU mutation holds this lock; chunk uploads happen outside
+        # it (a generator must not hold a lock across yields)
+        self._mu = threading.RLock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.streamed = 0        # chunks served uncached (budget/disabled)
+
+    def budget_bytes(self) -> int:
+        return int(config.tcache_size_mb) << 20
+
+    def total_bytes(self) -> int:
+        return sum(e.nbytes for e in self._lru.values())
+
+    def clear(self) -> None:
+        with self._mu:
+            self._lru.clear()
+
+    def _sweep(self) -> None:
+        dead = [k for k, e in self._lru.items() if not e.alive()]
+        for k in dead:
+            del self._lru[k]
+
+    def _evict_to_fit(self, incoming: int) -> None:
+        budget = self.budget_bytes()
+        while self._lru and self.total_bytes() + incoming > budget:
+            self._lru.popitem(last=False)
+            self.evictions += 1
+
+    def chunks_for(self, table: Table, names: Sequence[str], cap: int,
+                   pm=None) -> Iterator[CachedChunk]:
+        """Yield this table's chunks with planes on the configured device,
+        cached when the table fits the byte budget."""
+        dev = device()
+        cols = [table.columns[n] for n in names]
+        n = table.nrows
+        if n == 0:
+            return
+        if not (config.enabled and config.enable_tcache):
+            yield from self._stream(table, names, n, cap, dev, pm)
+            return
+
+        ids = tuple(c.uid for c in cols)
+        if not ids:
+            # count(*)-style empty layouts: key on the table's own columns
+            # (+nrows) so two tables can never share an entry
+            ids = ("norows", n) + tuple(
+                c.uid for c in table.columns.values())
+        key = ("chunks", ids, cap, str(dev))
+        with self._mu:
+            self._sweep()
+            ent = self._lru.get(key)
+            if ent is not None:
+                self._lru.move_to_end(key)
+                ent.hits += 1
+                self.hits += 1
+        if ent is not None:
+            if pm is not None:
+                pm.bump("tcache_hits")
+            yield from ent.chunks
+            return
+
+        nchunks = -(-n // cap)
+        est = nchunks * cap * sum(
+            sum(p.dtype.itemsize for p in planes_of_column(c)) for c in cols)
+        if est > self.budget_bytes():
+            yield from self._stream(table, names, n, cap, dev, pm)
+            return
+
+        self.misses += 1
+        if pm is not None:
+            pm.bump("tcache_misses")
+        chunks: list[CachedChunk] = []
+        nbytes = 0
+        for start in range(0, n, cap):
+            cc, up = self._load(table, names, start, min(start + cap, n),
+                                cap, dev, pm)
+            nbytes += up
+            chunks.append(cc)
+            yield cc
+        with self._mu:
+            self._evict_to_fit(nbytes)
+            self._lru[key] = _Entry(chunks=chunks, nbytes=nbytes,
+                                    col_refs=[weakref.ref(c) for c in cols])
+
+    def _load(self, table: Table, names, start: int, stop: int, cap: int,
+              dev: torch.device, pm) -> tuple[CachedChunk, int]:
+        hc = Chunk.from_table(table, start, stop, cap)
+        if hc.row_recheck.any():
+            return CachedChunk(table.name, start, stop - start, cap, True,
+                               None), 0
+        host_planes = [planes_of_column(hc.columns[nm]) for nm in names]
+        up = sum(p.nbytes for ps in host_planes for p in ps)
+        if pm is not None:
+            pm.add_bytes("h2d", up)
+        planes = tuple(_upload(ps, dev) for ps in host_planes)
+        return CachedChunk(table.name, start, stop - start, cap, False,
+                           planes), up
+
+    def _stream(self, table: Table, names, n: int, cap: int,
+                dev: torch.device, pm=None) -> Iterator[CachedChunk]:
+        for start in range(0, n, cap):
+            self.streamed += 1
+            yield self._load(table, names, start, min(start + cap, n), cap,
+                             dev, pm)[0]
+
+
+TCACHE = DeviceChunkCache()

@@ -1,0 +1,13 @@
+"""Expression engine: typed IR, function catalog and exact host evaluation.
+
+The device lowering of the reference (expr/lower_jax.py) becomes
+expr/lower_torch.py; this slice ports only its schema helpers — the
+Lowerer is the next item of the port (ROADMAP queue 1).
+"""
+
+from .ir import (  # noqa: F401
+    Expr, Const, ColumnRef, Param, FuncExpr, BoolExpr, NullTest, BooleanTest,
+    CaseExpr, Aggref, CoalesceExpr, resolve_function, implicit_cast, bind_columns,
+)
+from .catalog import FUNCTION_CATALOG, device_expression_supported  # noqa: F401
+from .eval_cpu import eval_expr_cpu  # noqa: F401

@@ -1,0 +1,108 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+nvcc compiles the `.cu` sources of this directory into one shared library
+with a plain C interface (no PyTorch headers, so it builds in seconds), and
+ctypes binds it; the wrappers pass `data_ptr()`s and PyTorch's current
+stream.  The library is built at first use into `pg_strom_tpu_torch/_build/`
+(listed in .gitignore), under a name keyed by a hash of the sources and the
+flags, and moved into place with an atomic rename so that concurrent
+processes never load a half-written file.  A missing nvcc, a failed build
+or a failed launch raises: no kernel gives way to its plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
+SOURCES = ("preagg_fused2.cu",)
+# sm_90a: Hopper with its arch-specific features; --fmad=false keeps float32
+# arithmetic IEEE-identical to the plain PyTorch versions (no contraction
+# of a multiply and an add into one rounding); -Xptxas -v reports
+# registers, shared memory and spills into the build log
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+# the last build in this process: wall seconds and nvcc's stderr (ptxas
+# register/shared-memory report); None when the library was already built
+build_seconds: float | None = None
+build_log: str | None = None
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from the "
+                       "sources in this package at first use")
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for s in SOURCES:
+        with open(os.path.join(_DIR, s), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(_BUILD_DIR, f"libpgstrom_kernels-{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernel library unless this source/flag hash is built."""
+    global build_seconds, build_log
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(_DIR, s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, so)
+    build_seconds = time.perf_counter() - t0
+    build_log = r.stderr
+    return so
+
+
+def k1_library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            L = ctypes.CDLL(build())
+            c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+            L.pgstrom_k1_launch.restype = c_int
+            L.pgstrom_k1_launch.argtypes = [
+                c_ptr, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
+                ctypes.c_longlong, c_int, c_int, c_int, c_int, c_int, c_int,
+                c_int, c_int, c_ptr, c_ptr, c_int, c_int, ctypes.c_size_t,
+                c_ptr]
+            L.pgstrom_cuda_error_string.restype = ctypes.c_char_p
+            L.pgstrom_cuda_error_string.argtypes = [c_int]
+            _lib = L
+        return _lib
+
+
+def cuda_error_text(code: int) -> str:
+    msg = k1_library().pgstrom_cuda_error_string(code)
+    return f"{msg.decode() if msg else 'unknown error'} (cudaError {code})"

@@ -1,0 +1,403 @@
+"""Top-level SQL API: execute / explain.
+
+The psql-facing surface.  SET statements map PostgreSQL GUC names
+(pg_strom.enabled, pg_strom.debug_force_gpupreagg, extra_float_digits, ...)
+onto the config system, so the reference's regression scripts drive this
+engine with their SET lines unchanged (input/sql/*.sql:3-7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+from ..config import config, set_config
+from ..datastore import Database
+from ..plan.planner import plan_query, plan_select, PlannedQuery
+from ..sql import parser as ast
+from ..utils.pgformat import value_out
+
+
+# session-level settings that aren't engine config
+_SESSION = {"extra_float_digits": 0}
+
+_GUC_MAP = {
+    "pg_strom.enabled": "enabled",
+    "pg_strom.enabled_global": "enabled_global",
+    "pg_strom.enable_gpuscan": "enable_tpuscan",
+    "pg_strom.enable_tpuscan": "enable_tpuscan",
+    "pg_strom.enable_gpuhashjoin": "enable_tpuhashjoin",
+    "pg_strom.enable_tpuhashjoin": "enable_tpuhashjoin",
+    "pg_strom.enable_gpupreagg": "enable_tpupreagg",
+    "pg_strom.enable_tpupreagg": "enable_tpupreagg",
+    "pg_strom.enable_gpusort": "enable_tpusort",
+    "pg_strom.debug_force_gpupreagg": "debug_force_tpupreagg",
+    "pg_strom.debug_force_tpupreagg": "debug_force_tpupreagg",
+    "pg_strom.perfmon": "perfmon",
+    "pg_strom.show_device_kernel": "show_device_kernel",
+    "pg_strom.chunk_size": "chunk_rows",
+    "pg_strom.min_async_chunks": "min_async_chunks",
+    "pg_strom.max_async_chunks": "max_async_chunks",
+    "pg_strom.distributed": "distributed",
+    "pg_strom.preagg_int8": "use_preagg_int8",
+    "pg_strom.warmup_async": "warmup_async",
+}
+
+
+@dataclasses.dataclass
+class Result:
+    columns: list[str]
+    rows: list[tuple]
+    types: list
+    command: str = "SELECT"
+
+    def formatted(self, extra_float_digits: Optional[int] = None) -> list[str]:
+        efd = (_SESSION["extra_float_digits"]
+               if extra_float_digits is None else extra_float_digits)
+        from ..utils.pgformat import row_out
+        return [row_out(r, tuple(self.types), efd) for r in self.rows]
+
+    def scalar(self) -> Any:
+        return self.rows[0][0] if self.rows else None
+
+
+def execute(sql: str, db: Database) -> Result:
+    stmt = ast.parse(sql)
+    if isinstance(stmt, ast.SetStmt):
+        _apply_set(stmt)
+        return Result(columns=[], rows=[], types=[], command="SET")
+    if isinstance(stmt, ast.CreateStmt):
+        return _exec_create(stmt, db)
+    if isinstance(stmt, ast.DropStmt):
+        db.drop(stmt.name, missing_ok=stmt.if_exists)
+        return Result(columns=[], rows=[], types=[], command="DROP TABLE")
+    if isinstance(stmt, ast.InsertStmt):
+        return _exec_insert(stmt, db)
+    if isinstance(stmt, ast.UpdateStmt):
+        return _exec_update(stmt, db)
+    if isinstance(stmt, ast.DeleteStmt):
+        return _exec_delete(stmt, db)
+    if isinstance(stmt, ast.CopyStmt):
+        return _exec_copy(stmt, db)
+    if isinstance(stmt, ast.ExplainStmt):
+        pq = plan_query(stmt.query, db)
+        text = pq.explain(verbose=stmt.verbose, costs=stmt.costs)
+        from ..sqltypes import T
+        if stmt.analyze:
+            # EXPLAIN ANALYZE: run it and append perfmon phases (the
+            # pg_strom.perfmon EXPLAIN output analog, main.c:504-660)
+            import time as _time
+            from ..config import override
+            with override(perfmon=True):
+                t0 = _time.perf_counter()
+                rows = pq.execute()
+                dt = (_time.perf_counter() - t0) * 1e3
+            text += f"\n(actual rows={len(rows)})"
+            for line in pq.perfmon.report_lines():
+                text += f"\n  {line}"
+            text += f"\nExecution Time: {dt:.3f} ms"
+        return Result(columns=["QUERY PLAN"],
+                      rows=[(line,) for line in text.splitlines()],
+                      types=[T.TEXT], command="EXPLAIN")
+    pq = plan_query(stmt, db)
+    rows = pq.execute()
+    return Result(columns=pq.out_names, rows=rows, types=pq.out_types)
+
+
+def explain(sql: str, db: Database, verbose: bool = False) -> str:
+    stmt = ast.parse(sql)
+    if isinstance(stmt, ast.ExplainStmt):
+        return plan_query(stmt.query, db).explain(verbose=stmt.verbose or verbose)
+    return plan_query(stmt, db).explain(verbose=verbose)
+
+
+def _apply_set(stmt: ast.SetStmt) -> None:
+    name = stmt.name.lower()
+    val = stmt.value.strip().strip("'")
+    if name == "extra_float_digits":
+        _SESSION["extra_float_digits"] = int(val.replace(" ", ""))
+        return
+    if name in ("client_min_messages",):
+        set_config("client_min_messages", val)
+        return
+    if name in _GUC_MAP:
+        set_config(_GUC_MAP[name], val)
+        return
+    if name.startswith("pg_strom."):
+        key = name.split(".", 1)[1]
+        try:
+            set_config(key, val)
+            return
+        except KeyError:
+            pass
+        raise KeyError(f'unrecognized configuration parameter "{name}"')
+    # unknown non-engine settings are accepted and ignored (psql compat)
+
+
+# ---------------------------------------------------------------------------
+# DDL / DML (the engine IS the database here; the reference delegated these
+# to PostgreSQL)
+# ---------------------------------------------------------------------------
+
+def _value_in(t, v):
+    """Coerce a python/SQL-literal value to a column type's host value."""
+    import datetime
+    from decimal import Decimal
+    from ..sqltypes import T, type_from_sql  # noqa: F401
+    from ..pgops import check_int_range
+    from ..errors import SqlError
+    if v is None:
+        return None
+    if t in (T.INT2, T.INT4, T.INT8):
+        # PG assignment cast to integer rounds half-away-from-zero
+        # (numeric) / half-even (float rint); unparseable strings raise
+        # 22P02, not a bare ValueError.
+        try:
+            if isinstance(v, bool):
+                raise ValueError("boolean")
+            if isinstance(v, float):
+                # PG float8->int4 is rint(): ties-to-even, like round()
+                iv = round(v)
+            elif isinstance(v, Decimal):
+                # PG numeric->int4 rounds ties away from zero
+                from decimal import ROUND_HALF_UP
+                iv = int(v.to_integral_value(rounding=ROUND_HALF_UP))
+            elif isinstance(v, str):
+                s = v.strip()
+                try:
+                    iv = int(s)
+                except ValueError:
+                    # PG int4 input accepts no fraction; go through
+                    # numeric semantics like a numeric literal would
+                    from decimal import ROUND_HALF_UP
+                    iv = int(Decimal(s).to_integral_value(
+                        rounding=ROUND_HALF_UP))
+            else:
+                iv = int(v)
+        except (ValueError, ArithmeticError):
+            raise SqlError(
+                f"invalid input syntax for type integer: {v!r}")
+        return check_int_range(t, iv)
+    if t in (T.FLOAT4, T.FLOAT8):
+        try:
+            return float(v)
+        except (ValueError, TypeError):
+            raise SqlError(
+                f"invalid input syntax for type double precision: {v!r}")
+    if t is T.NUMERIC:
+        return v if isinstance(v, Decimal) else Decimal(str(v))
+    if t is T.BOOL:
+        if isinstance(v, str):
+            return v.strip().lower() in ("t", "true", "yes", "on", "1")
+        return bool(v)
+    if t is T.DATE:
+        if isinstance(v, (int,)):
+            return int(v)
+        d = datetime.date.fromisoformat(str(v).strip())
+        return (d - datetime.date(2000, 1, 1)).days
+    if t is T.TIME:
+        if isinstance(v, int):
+            return v
+        tt = datetime.time.fromisoformat(str(v).strip())
+        return ((tt.hour * 60 + tt.minute) * 60 + tt.second) * 1_000_000 \
+            + tt.microsecond
+    if t is T.TIMESTAMP:
+        if isinstance(v, int):
+            return v
+        ts = datetime.datetime.fromisoformat(str(v).strip())
+        return round((ts - datetime.datetime(2000, 1, 1)).total_seconds()
+                     * 1_000_000)
+    return str(v)
+
+
+def _exec_create(stmt: ast.CreateStmt, db: Database) -> Result:
+    from ..sqltypes import type_from_sql
+    from ..datastore import Table, column_from_values
+    if stmt.name in db and stmt.if_not_exists:
+        return Result([], [], [], command="CREATE TABLE")
+    cols = {cn: column_from_values(type_from_sql(tn), [])
+            for cn, tn in stmt.columns}
+    db.create(Table.from_columns(stmt.name, cols),
+              replace=False if not stmt.if_not_exists else True)
+    return Result([], [], [], command="CREATE TABLE")
+
+
+def _exec_insert(stmt: ast.InsertStmt, db: Database) -> Result:
+    from ..errors import SqlError
+    from ..datastore import Table, column_from_values
+    from ..plan.planner import plan_query
+    from ..plan.binder import Scope, bind_expr
+    from ..expr.eval_cpu import eval_expr_cpu
+    tbl = db.get(stmt.name)
+    names = list(tbl.column_names)
+    tgt = stmt.columns or names
+    unknown = [c for c in tgt if c not in names]
+    if unknown:
+        raise SqlError(f'column "{unknown[0]}" of relation '
+                       f'"{stmt.name}" does not exist')
+    if stmt.query is not None:
+        rows = plan_query(stmt.query, db).execute()
+    else:
+        scope = Scope(rels=[])
+
+        def norow(_):
+            raise SqlError("INSERT VALUES may not reference columns")
+        rows = []
+        for r in stmt.values:
+            vals = []
+            for e in r:
+                be = bind_expr(e, scope, allow_aggs=False)
+                vals.append(eval_expr_cpu(be, norow))
+            rows.append(vals)
+    for r in rows:
+        if len(r) != len(tgt):
+            raise SqlError("INSERT has more or fewer expressions than "
+                           "target columns")
+    # rebuild columns (columns are immutable; acceptable for DML-scale
+    # inserts — bulk ingest goes through COPY / the native CSV loader)
+    per_tgt = {c: i for i, c in enumerate(tgt)}
+    new_cols = {}
+    for cn in names:
+        c = tbl.columns[cn]
+        old = [c.get(i) for i in range(tbl.nrows)]
+        if cn in per_tgt:
+            old.extend(_value_in(c.type, r[per_tgt[cn]]) for r in rows)
+        else:
+            old.extend(None for _ in rows)
+        new_cols[cn] = column_from_values(c.type, old)
+    db.create(Table.from_columns(stmt.name, new_cols))
+    return Result([], [], [], command=f"INSERT 0 {len(rows)}")
+
+
+def _dml_layout(name: str, tbl) -> dict:
+    # the binder qualifies refs as "alias.col"; accept bare names too
+    layout = {}
+    for i, n in enumerate(tbl.column_names):
+        layout[n] = i
+        layout[f"{name}.{n}"] = i
+    return layout
+
+
+def _bound_where(where, name: str, tbl, db):
+    """WHERE of UPDATE/DELETE bound to the table layout — the match set
+    comes from the same scan route SELECT uses (plan/planner.py
+    _scan_row_indexes)."""
+    from ..plan.binder import Scope, bind_expr
+    from ..expr.ir import bind_columns
+    be = bind_expr(where, Scope(rels=[(name, tbl)], db=db),
+                   allow_aggs=False)
+    return bind_columns(be, _dml_layout(name, tbl))
+
+
+def _exec_delete(stmt: "ast.DeleteStmt", db: Database) -> Result:
+    import numpy as np
+    from ..datastore import Table, column_gather
+    from ..plan.planner import _scan_row_indexes
+    from ..utils.perfmon import Perfmon
+    tbl = db.get(stmt.name)
+    if stmt.where is None:
+        hit = np.arange(tbl.nrows, dtype=np.int64)
+    else:
+        hit = np.asarray(_scan_row_indexes(
+            tbl, _bound_where(stmt.where, stmt.name, tbl, db), Perfmon()),
+            dtype=np.int64)
+    # plane-level rebuild (a python keep-list would rebuild every column
+    # through per-value loops)
+    keepmask = np.ones(tbl.nrows, dtype=bool)
+    keepmask[hit] = False
+    keep = np.flatnonzero(keepmask)
+    db.create(Table.from_columns(stmt.name, {
+        cn: column_gather(tbl.columns[cn], keep)
+        for cn in tbl.column_names}))
+    return Result([], [], [], command=f"DELETE {len(hit)}")
+
+
+def _widening_cast(src, dst) -> bool:
+    """Assignment casts that are a pure numpy astype: int widening, any
+    int -> float (PG rounds exactly like IEEE conversion), float4 ->
+    float8.  Narrowing needs range/rounding checks and stays per-value."""
+    from ..sqltypes import T
+    ints = (T.INT2, T.INT4, T.INT8)
+    floats = (T.FLOAT4, T.FLOAT8)
+    if src in ints and dst in ints:
+        return ints.index(src) <= ints.index(dst)
+    if src in ints and dst in floats:
+        return True
+    return src is T.FLOAT4 and dst is T.FLOAT8
+
+
+def _exec_update(stmt: "ast.UpdateStmt", db: Database) -> Result:
+    import numpy as np
+    from ..errors import SqlError
+    from ..plan.planner import _scan_row_indexes
+    from ..utils.perfmon import Perfmon
+    from ..plan.binder import Scope, bind_expr
+    from ..expr.ir import bind_columns
+    from ..expr.eval_cpu import eval_expr_cpu
+    from ..datastore import Table, column_from_values
+    tbl = db.get(stmt.name)
+    names = list(tbl.column_names)
+    for cn, _e in stmt.sets:
+        if cn not in names:
+            raise SqlError(f'column "{cn}" of relation "{stmt.name}" '
+                           "does not exist")
+    if stmt.where is None:
+        hit = np.arange(tbl.nrows, dtype=np.int64)
+    else:
+        hit = np.asarray(_scan_row_indexes(
+            tbl, _bound_where(stmt.where, stmt.name, tbl, db), Perfmon()),
+            dtype=np.int64)
+    scope = Scope(rels=[(stmt.name, tbl)], db=db)
+    layout = _dml_layout(stmt.name, tbl)
+    bsets = [(cn, bind_columns(bind_expr(e, scope, allow_aggs=False),
+                               layout))
+             for cn, e in stmt.sets]
+    # SET exprs see the OLD row (PG semantics: all assignments evaluate
+    # against the pre-update tuple).  Plane-level rebuild: untouched
+    # columns are SHARED (same uid => the
+    # device chunk cache keeps its buffers), updated columns scatter a
+    # hit-sized sub-column into a plane copy; only complex SET
+    # expressions evaluate per hit row.
+    from ..expr.ir import ColumnRef, Const
+    from ..datastore import column_gather, column_scatter
+    from ..plan.planner import _column_values_at
+    cols = [tbl.columns[n] for n in names]
+    nhit = len(hit)
+    subs: dict[str, object] = {}
+    for cn, be in bsets:
+        t = tbl.columns[cn].type
+        if isinstance(be, Const):
+            one = column_from_values(t, [_value_in(t, be.value)])
+            subs[cn] = column_gather(one, np.zeros(nhit, np.int64))
+        elif isinstance(be, ColumnRef) and cols[be.index].type == t:
+            subs[cn] = column_gather(cols[be.index], hit)
+        elif isinstance(be, ColumnRef) and _widening_cast(
+                cols[be.index].type, t):
+            # lossless-or-PG-rounding plane cast (int widening, int->float,
+            # float4->float8): pure astype, no per-value loop
+            from ..datastore import column_from_numpy
+            src = cols[be.index]
+            subs[cn] = column_from_numpy(t, src.data[hit], src.valid[hit])
+        elif isinstance(be, ColumnRef):
+            vals = _column_values_at(cols[be.index], hit)
+            subs[cn] = column_from_values(
+                t, [None if v is None else _value_in(t, v) for v in vals])
+        else:
+            def row_at(i):
+                return lambda s: cols[s].get(i)
+            vals = [eval_expr_cpu(be, row_at(int(i))) for i in hit]
+            subs[cn] = column_from_values(
+                t, [None if v is None else _value_in(t, v) for v in vals])
+    new_cols = {}
+    for cn in names:
+        c = tbl.columns[cn]
+        new_cols[cn] = column_scatter(c, hit, subs[cn]) if cn in subs \
+            else c
+    db.create(Table.from_columns(stmt.name, new_cols))
+    return Result([], [], [], command=f"UPDATE {nhit}")
+
+
+def _exec_copy(stmt: ast.CopyStmt, db: Database) -> Result:
+    """COPY rides the native parallel CSV loader in the reference."""
+    raise NotImplementedError(
+        "COPY: not ported yet (ROADMAP queue 1: native/ and COPY)")

@@ -1,0 +1,45 @@
+"""K1 (pg_strom_tpu_torch/ops/cuda/preagg_fused2.cu) against its plain
+PyTorch version, on the card.
+
+Needs an NVIDIA GPU and skips without one.  It imports no JAX, so it runs
+on a machine that has only PyTorch and the CUDA toolkit (tests/conftest.py
+imports jax, hence --noconftest there):
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+The cases are chip_smoke.py's kernel phase at 2^16 rows with a ragged
+live-row tail; `ints` must be bit-equal and the host-replay decision the
+same."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", cs.KERNEL_CASES)
+def test_kernel_matches_plain_version(cuda_device, name):
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.expr.lower_torch import schema_from_chunk_columns
+    from pg_strom_tpu_torch.ops.preagg_fused2 import derive_v2_plan
+    n = 1 << 16
+    t = cs._case_table(name, np.random.default_rng(5), n)
+    pred, groups, aggs = cs._case_query(name, cs._cols(t))
+    cols = [t.columns[nm] for nm in t.column_names]
+    with override(use_preagg_int8=(name != "flagship_int8_off")):
+        plan = derive_v2_plan(cols, schema_from_chunk_columns(
+            t.column_names, cols), groups, aggs, pred, 4096)
+    assert plan is not None
+    assert cs._compare(plan, pred, cs._device_cols(t, cuda_device),
+                       n - 37) == 0

@@ -1,0 +1,158 @@
+"""The slice end to end: SQL through `execute()` in the JAX reference and in
+the PyTorch port, on the same state.
+
+The tables are built with the reference (including its regression fixture
+`models/fixtures.make_preagg_test`) and carried into the port with
+`pg_strom_tpu_torch.datastore.from_reference`.  Both packages force the
+device plan; the port runs on `device="cpu"`, i.e. through the plain
+PyTorch version of K1.  Rows must be equal as PostgreSQL text at
+extra_float_digits=-3, the reference's own rule.  The port's perfmon must
+show that the v2 shapes ran on the kernel path (device_chunks, no
+unported_host_exact) and that the non-v2 shape ran host-exact, visibly."""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import pytest
+
+import pg_strom_tpu as R
+import pg_strom_tpu_torch as P
+from pg_strom_tpu.datastore import (Database as RDatabase, Table as RTable,
+                                    column_from_numpy as rnp)
+from pg_strom_tpu.models.fixtures import make_preagg_test
+from pg_strom_tpu.sql import execute as r_execute
+from pg_strom_tpu_torch.datastore import from_reference
+from pg_strom_tpu_torch.plan.planner import plan_query as p_plan_query
+from pg_strom_tpu_torch.sql import parser as p_ast
+from pg_strom_tpu_torch.sql.api import Result as PResult
+
+
+def _flagship_table(n=6000, seed=0):
+    rng = np.random.default_rng(seed)
+    return RTable.from_columns("t", {
+        "key": rnp(R.T.INT4, rng.integers(0, 30, n).astype(np.int32)),
+        "k2": rnp(R.T.INT4, rng.integers(0, 3, n).astype(np.int32)),
+        "x": rnp(R.T.FLOAT4, rng.random(n).astype(np.float32),
+                 rng.random(n) > 0.05),
+        "y": rnp(R.T.INT8, rng.integers(0, 1 << 40, n).astype(np.int64),
+                 rng.random(n) > 0.05),
+    })
+
+
+@pytest.fixture(scope="module")
+def dbs():
+    rdb = RDatabase()
+    rdb.create(_flagship_table())
+    rdb.create(make_preagg_test())
+    return rdb, from_reference(rdb)
+
+
+FLAGSHIP = ("SELECT key, sum(x), count(x), sum(y) FROM t WHERE x > 0.25 "
+            "GROUP BY key ORDER BY key")
+
+# name -> (sql, port config overrides)
+V2_QUERIES = {
+    "flagship": (FLAGSHIP, {}),
+    "flagship_multichunk": (FLAGSHIP, {"chunk_rows": 1 << 11}),
+    "having_order_by": (
+        "SELECT key, count(*), sum(y) FROM t WHERE x > 0.5 GROUP BY key "
+        "HAVING count(*) > 90 ORDER BY 3 DESC", {}),
+    "avg_stddev_int4": (
+        "SELECT key, avg(integer_x), stddev(integer_x), sum(integer_x), "
+        "count(integer_x) FROM gpupreagg_test GROUP BY key ORDER BY key",
+        {}),
+    "fixture_or_isnull_multichunk": (
+        "SELECT key, sum(bigint_x), count(*), sum(real_x), avg(integer_x) "
+        "FROM gpupreagg_test WHERE real_x > 0.5 OR integer_x IS NULL "
+        "GROUP BY key ORDER BY key", {"chunk_rows": 1 << 11}),
+}
+
+
+@contextlib.contextmanager
+def _forced(port_overrides):
+    with R.override(debug_force_tpupreagg=True), \
+            P.override(device="cpu", debug_force_tpupreagg=True,
+                       **port_overrides):
+        yield
+
+
+def _port_run(sql, pdb):
+    """execute() for a SELECT, keeping the plan's perfmon counters."""
+    pq = p_plan_query(p_ast.parse(sql), pdb)
+    rows = pq.execute()
+    return (PResult(columns=pq.out_names, rows=rows, types=pq.out_types),
+            dict(pq.perfmon.counts))
+
+
+@pytest.mark.parametrize("name", list(V2_QUERIES))
+def test_v2_query_matches_reference(dbs, name):
+    rdb, pdb = dbs
+    sql, ovr = V2_QUERIES[name]
+    with _forced(ovr):
+        want = r_execute(sql, rdb)
+        got, counts = _port_run(sql, pdb)
+        via_execute = P.execute(sql, pdb)
+    assert got.formatted(-3) == want.formatted(-3)
+    assert via_execute.formatted(-3) == want.formatted(-3)
+    assert counts.get("device_chunks", 0) >= 1, counts
+    assert counts.get("unported_host_exact", 0) == 0, counts
+    assert counts.get("recheck_chunks", 0) == 0, counts
+
+
+def test_non_v2_shape_runs_host_exact_visibly(dbs):
+    """Two GROUP BY keys have no v2 plan: the port answers on the host-exact
+    tier, bumps unported_host_exact, and matches the reference."""
+    rdb, pdb = dbs
+    sql = ("SELECT key, k2, count(*), sum(y), sum(x) FROM t WHERE x > 0.25 "
+           "GROUP BY key, k2 ORDER BY key, k2")
+    with _forced({}):
+        want = r_execute(sql, rdb)
+        got, counts = _port_run(sql, pdb)
+    assert got.formatted(-3) == want.formatted(-3)
+    assert counts.get("unported_host_exact", 0) >= 1, counts
+    assert not counts.get("device_chunks"), counts
+
+
+def test_explain_analyze_shows_the_kernel_path(dbs):
+    _, pdb = dbs
+    with _forced({}):
+        text = "\n".join(r[0] for r in
+                         P.execute("EXPLAIN ANALYZE " + FLAGSHIP, pdb).rows)
+    assert "TpuPreAgg" in text and "device_chunks: 1" in text, text
+    assert "unported_host_exact" not in text, text
+
+
+HOST_QUERIES = [
+    "SELECT 1 + 2, abs(-4), 'a' || 'b'",
+    "SELECT count(*), sum(y), avg(x), max(key) FROM t WHERE x > 0.25",
+    "SELECT key, sum(y) FROM t GROUP BY key UNION ALL "
+    "SELECT key, sum(y) FROM t WHERE x > 0.5 GROUP BY key ORDER BY 1, 2",
+    "WITH s AS (SELECT key, count(*) AS c FROM t GROUP BY key) "
+    "SELECT count(*), sum(c), min(c) FROM s",
+]
+
+
+@pytest.mark.parametrize("sql", HOST_QUERIES)
+def test_copied_host_surface_matches_reference(dbs, sql):
+    """Shapes outside the slice still answer in the port — the copied
+    host tiers (table-less SELECT, ungrouped aggregates on the host-exact
+    tier, set operations, CTEs) — and agree with the reference."""
+    rdb, pdb = dbs
+    with _forced({}):
+        want = r_execute(sql, rdb)
+        got = P.execute(sql, pdb)
+    assert got.formatted(-3) == want.formatted(-3)
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT a.key, count(*) FROM t a JOIN t b ON a.key = b.key GROUP BY 1",
+    "SELECT key, rank() OVER (ORDER BY key) FROM t",
+    "SELECT key FROM t ORDER BY key LIMIT 3",
+])
+def test_unported_routes_raise_not_implemented(dbs, sql):
+    _, pdb = dbs
+    with _forced({}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            P.execute(sql, pdb)
