@@ -2,28 +2,41 @@
 """Smoke run of the PyTorch/CUDA port (pg_strom_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--rows-log2 27] [--kernel-rows-log2 20]
+                          [--k4-rows-log2 24]
 
 Phases, in order; any failure raises, exits non-zero and prints no `ok`:
 
 1. require a CUDA device; print the card's name and power limit
    (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
-2. build the K1 kernel library from ops/cuda/preagg_fused2.cu (nvcc,
-   sm_90a) and print the build time and the ptxas report;
-3. hold the kernel against its plain PyTorch version on the card, at
-   2^20 rows with nrows = 2^20 - 37, over the cases listed in
-   KERNEL_CASES: `ints` bit-equal and the same host-replay decision;
-4. the slice: a port Database holding the flagship table (2^27 rows: two
-   2^26-row chunks, int4 key in 0..29, float4 x with 5% NULL, int8 y in
-   [0, 2^40) with 5% NULL), then
+2. build the kernel library (K1 ops/cuda/preagg_fused2.cu, K2
+   preagg_fused.cu, K4 preagg_pallas.cu; one nvcc per source, in
+   parallel, sm_90a) and print the build time and the ptxas reports;
+3. hold each kernel against its plain PyTorch version on the card, at
+   2^20 rows with nrows = 2^20 - 37: K1 over KERNEL_CASES, K2 over
+   K2_CASES (dense text key with float8 blocks, hashed int4 keys,
+   int8/timestamp keys, float4 with NaN/inf/NULL, corr/covar, G = 2048
+   with column tiling, an all-NULL group), K4 over two of those value
+   matrices at G = 32 and 2048: `ints` bit-equal and the same host-replay
+   decision;
+4. the flagship slice: a port Database holding the flagship table (2^27
+   rows: two 2^26-row chunks, int4 key in 0..29, float4 x with 5% NULL,
+   int8 y in [0, 2^40) with 5% NULL), then
    SELECT key, sum(x), count(x), sum(y) FROM t WHERE x > 0.25 GROUP BY key
-   through the planner: every chunk on the kernel (device_chunks == 2,
-   recheck_chunks == 0, unported_host_exact == 0, K1 launched), count and
-   sum(y) exact against numpy int64, sum(x) to rel 1e-5;
-5. a 2^14-row table with NULLs and NaN through the device path and the
-   host-exact tier: equal rows;
-6. timings (cold and warm query, the kernel alone and its plain version at
-   the main path's chunk shape), each beside the card's name and power
-   limit; then the kernels' JSON line and, last, the `ok` line.
+   through the planner: every chunk on K1, count and sum(y) exact against
+   numpy int64, sum(x) to rel 1e-5;
+4b. general grouped aggregation: t0 of models/testdb.py at 2^27 rows
+   (tcache_size_mb=32768) and its queries agg_group, rollup, filter and
+   agg_nogrp through the planner: every chunk on the device, none
+   replayed, K2 launched (agg_group cold at G = 1024 and warm at G = 32,
+   rollup on its first rung), counts exact and float8 sums / averages to
+   rel 1e-9 against numpy;
+4c. the K4 path: agg_group over a 2^24-row t0 with the fused kernel off
+   and use_pallas_reduce on: K4 launched, rows equal to the K2 run's;
+5. a 2^14-row table and a 2^14-row t0 with NULLs and NaN through the
+   device path and the host-exact tier: equal rows;
+6. timings (cold and warm queries, each kernel alone and its plain
+   version at the main path's shapes), each beside the card's name and
+   power limit; then the kernels' JSON line and, last, the `ok` line.
 """
 
 from __future__ import annotations
@@ -255,6 +268,188 @@ def phase_kernels(seed: int, log2n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: K2 and K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+K2_CASES = ("agg_group", "two_hashed_int4", "int8_timestamp_keys",
+            "float4_nan_inf_null", "corr_covar", "g2048_tiling",
+            "all_null_group")
+
+
+def _dval(t, data, valid, dev):
+    import torch
+    from pg_strom_tpu_torch.expr.lower_torch import DVal
+    return DVal(t, torch.from_numpy(data).to(dev),
+                torch.from_numpy(valid).to(dev))
+
+
+def _inst(name, *types):
+    from pg_strom_tpu_torch.expr.ir import ColumnRef
+    from pg_strom_tpu_torch.ops.preagg import AggInstance, lookup_agg
+    d, fam = lookup_agg(name, types)
+    return AggInstance(aggname=name, family=fam, slots=d.slots,
+                       args=tuple(ColumnRef(type=t, name=f"a{i}", index=i)
+                                  for i, t in enumerate(types)))
+
+
+def _k2_case(name: str, rng, N: int, dev):
+    """(keys, aggs, arg vals, mask, seg ids, G, dense) of one K2 case:
+    DVals on the card, bucket ids as the strategy computes them."""
+    import numpy as np
+    import torch
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.ops.preagg import _bucket_ids
+
+    def nulls(p):
+        return rng.random(N) > p
+
+    def f8(scale=100.0, p=0.0):
+        return _dval(T.FLOAT8, rng.random(N) * scale, nulls(p), dev)
+
+    mask = torch.from_numpy(nulls(0.01)).to(dev)
+    if name in ("agg_group", "g2048_tiling"):
+        G = 32 if name == "agg_group" else 2048
+        span = 26 if name == "agg_group" else 2000
+        key = _dval(T.TEXT, rng.integers(0, span, N, dtype=np.int32),
+                    np.ones(N, np.bool_), dev)
+        x, y = f8(), f8()
+        aggs = [_inst("count"), _inst("sum", T.FLOAT8),
+                _inst("avg", T.FLOAT8)]
+        kd = key.data.to(torch.int64)
+        seg = torch.where(mask, (kd - kd.min()).to(torch.int32),
+                          torch.full_like(key.data, G))
+        return [key], aggs, [[], [x], [y]], mask, seg, G, True
+    G = 1024
+    if name == "two_hashed_int4":
+        keys = [_dval(T.INT4, rng.integers(-3, 40, N, dtype=np.int32),
+                      nulls(0.05), dev),
+                _dval(T.INT4, rng.integers(1, 9, N, dtype=np.int32) * 1000003,
+                      np.ones(N, np.bool_), dev)]
+        z = _dval(T.INT4, rng.integers(-(1 << 31), (1 << 31) - 1, N,
+                                       dtype=np.int32), nulls(0.1), dev)
+        aggs, vals = [_inst("sum", T.INT4), _inst("stddev", T.INT4)], [[z], [z]]
+    elif name == "int8_timestamp_keys":
+        base = np.asarray([0, -1, 1 << 62, -(1 << 62), 123456789012345678],
+                          np.int64)
+        keys = [_dval(T.INT8, base[rng.integers(0, 5, N)], nulls(0.05), dev),
+                _dval(T.TIMESTAMP, rng.integers(0, 4, N) * 86400_000_000 * 30,
+                      np.ones(N, np.bool_), dev)]
+        y = _dval(T.INT8, rng.integers(-(1 << 40), 1 << 40, N), nulls(0.1),
+                  dev)
+        aggs, vals = [_inst("sum", T.INT8), _inst("count", T.INT8)], [[y], [y]]
+    elif name == "float4_nan_inf_null":
+        x = ((rng.random(N) - 0.5) * 1e3).astype(np.float32)
+        x[rng.random(N) < 0.001] = np.nan
+        x[rng.random(N) < 0.001] = np.inf
+        keys = [_dval(T.INT4, rng.integers(0, 50, N, dtype=np.int32),
+                      np.ones(N, np.bool_), dev)]
+        xv = _dval(T.FLOAT4, x, nulls(0.2), dev)
+        aggs, vals = [_inst("sum", T.FLOAT4), _inst("count", T.FLOAT4)], \
+            [[xv], [xv]]
+    elif name == "corr_covar":
+        keys = [_dval(T.INT4, rng.integers(0, 50, N, dtype=np.int32),
+                      np.ones(N, np.bool_), dev)]
+        # corr: five float8 blocks (sum_x, sum_y, sum_xy, sumsq_x,
+        # sumsq_y), 114 columns, the widest plan K2 takes
+        x, y = f8(10.0, 0.1), f8(-50.0, 0.1)
+        aggs, vals = [_inst("corr", T.FLOAT8, T.FLOAT8)], [[x, y]]
+    else:                                            # all_null_group
+        k = rng.integers(0, 20, N, dtype=np.int32)
+        keys = [_dval(T.INT4, k, np.ones(N, np.bool_), dev)]
+        y = _dval(T.INT8, rng.integers(-(1 << 50), 1 << 50, N), k != 7, dev)
+        aggs, vals = [_inst("sum", T.INT8), _inst("count", T.INT8)], [[y], [y]]
+    seg = _bucket_ids(keys, mask, 0x9E3779B97F4A7C15, G)
+    return keys, aggs, vals, mask, seg, G, False
+
+
+def _k2_compare(name, keys, aggs, vals, mask, seg, G, n, dense):
+    """(max |kernel - plain| over ints, plan, lanes) after requiring
+    bit-equal ints and the same replay decision."""
+    import torch
+    from pg_strom_tpu_torch.ops import preagg_fused as pf
+    from pg_strom_tpu_torch.ops.preagg_mxu import mxu_overflow, mxu_recipes
+    kts = [k.t for k in keys]
+    ats = [tuple(v.t for v in vs) for vs in vals]
+    plan, _ = pf._plan_cached(tuple(kts), tuple(tuple(a.slots) for a in aggs),
+                              tuple(ats), True, dense)
+    if plan is None:
+        raise AssertionError(f"K2 case {name}: no fused plan")
+    inputs, scales, _ = pf.encode_lanes(keys, aggs, vals, mask, plan, dense)
+    sc = torch.stack(scales).float() if scales else torch.zeros(
+        1, device=mask.device)
+    seg = seg.to(torch.int32).contiguous()
+    ki, ks = pf.fused_cuda(plan, seg, inputs, sc, G, n)
+    ri, rs = pf.fused_reference(plan, seg, inputs, sc, G, n)
+    torch.cuda.synchronize()
+    err = int((ki - ri).abs().max().item())
+    if not torch.equal(ki, ri):
+        raise AssertionError(f"K2 case {name}: ints differ from the plain "
+                             f"version (max abs diff {err})")
+    _, slotr, _ = mxu_recipes(kts, aggs, ats, dense_key=dense)
+    pcs = [pc for _, pc in plan.shadow_map]
+    dec = [mxu_overflow({"mxu_fsums": s[:, pcs].double().cpu().numpy()},
+                        slotr) for s in (ks, rs)]
+    if dec[0] != dec[1]:
+        raise AssertionError(f"K2 case {name}: replay decisions differ")
+    return err, plan, (inputs, sc, seg), dec[0]
+
+
+def _k4_compare(name, keys, aggs, vals, mask, seg, G, n, dense):
+    import torch
+    from pg_strom_tpu_torch.ops import preagg_pallas as pp
+    from pg_strom_tpu_torch.ops.preagg_mxu import (build_mxu_columns,
+                                                   mxu_recipes, mxu_overflow,
+                                                   mxu_shadow_cols)
+    V, _ = build_mxu_columns(keys, aggs, vals, mask, seg.shape[0],
+                             dense_key=dense)
+    _, slotr, _ = mxu_recipes([k.t for k in keys], aggs,
+                              [tuple(v.t for v in vs) for vs in vals],
+                              dense_key=dense)
+    fc = mxu_shadow_cols(slotr)
+    seg = seg.to(torch.int32).contiguous()
+    ki, ks = pp.pallas_cuda(V, seg, G, n, fc)
+    ri, rs = pp.pallas_reduce_reference(V, seg, G, n, fc)
+    torch.cuda.synchronize()
+    err = int((ki - ri).abs().max().item())
+    if not torch.equal(ki, ri):
+        raise AssertionError(f"K4 case {name} G={G}: ints differ from the "
+                             f"plain version (max abs diff {err})")
+    dec = [mxu_overflow({"mxu_fsums": s[:, fc].double().cpu().numpy()},
+                        slotr) for s in (ks, rs)]
+    if dec[0] != dec[1]:
+        raise AssertionError(f"K4 case {name}: replay decisions differ")
+    return err, V.shape[1]
+
+
+def phase_kernels_k2k4(seed: int, log2n: int) -> int:
+    import numpy as np
+    import torch
+    N = 1 << log2n
+    n = N - 37
+    dev = torch.device("cuda")
+    worst = 0
+    for i, name in enumerate(K2_CASES):
+        case = _k2_case(name, np.random.default_rng(seed * 1000 + 100 + i),
+                        N, dev)
+        err, plan, _, replay = _k2_compare(name, *case[:6], n, case[6])
+        worst = max(worst, err)
+        _log(f"K2 case {name}: G={case[5]} K={plan.ncols} "
+             f"inputs={plan.n_inputs} replay={replay} ints bit-equal to the "
+             f"plain version")
+    for name in ("agg_group", "two_hashed_int4"):
+        keys, aggs, vals, mask, seg, G, dense = _k2_case(
+            name, np.random.default_rng(seed + 7), N, dev)
+        for g in (32, 2048):
+            sg = torch.where(seg < G, seg % g, torch.full_like(seg, g))
+            err, S = _k4_compare(name, keys, aggs, vals, mask, sg, g, n, dense)
+            worst = max(worst, err)
+            _log(f"K4 case {name}: G={g} S={S} ints bit-equal to the plain "
+                 f"version")
+    torch.cuda.empty_cache()
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
 
@@ -422,6 +617,316 @@ def _time_chunk(db, gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: general grouped aggregation over the star-schema fact table t0
+# ---------------------------------------------------------------------------
+
+CATS = [c * 3 for c in "abcdefghijklmnopqrstuvwxyz"]
+T0_SQL = {
+    "agg_group": "select cat, count(*), sum(x), avg(y) from t0 group by cat "
+                 "order by cat",
+    "rollup": "select cat, cid % 8, count(*), sum(x) from t0 "
+              "group by rollup(cat, cid % 8)",
+    "filter": "select count(*), sum(x) from t0 where x < 25.0 and y > 10.0",
+    "agg_nogrp": "select count(*), sum(x), avg(y) from t0",
+}
+
+
+def _t0_db(seed: int, n: int, nulls: bool = False):
+    """A port Database holding t0 as models/testdb.py builds it (26-value
+    text code, five int4 FKs in 1..40000, float8 x and y in [0, 100)),
+    made in bulk from `seed`; returns (db, numpy columns)."""
+    import numpy as np
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.datastore import (Column, Database, Table,
+                                              column_from_numpy as cn)
+    rng = np.random.default_rng(seed)
+    cat = rng.integers(0, 26, n, dtype=np.int32)
+    fks = {f: rng.integers(1, 40001, n, dtype=np.int32)
+           for f in ("aid", "bid", "cid", "did", "eid")}
+    x = rng.random(n) * 100.0
+    y = rng.random(n) * 100.0
+    xv = yv = None
+    if nulls:
+        x[rng.random(n) < 0.01] = np.nan
+        xv = rng.random(n) > 0.05
+        yv = rng.random(n) > 0.05
+    ones = np.ones(n, np.bool_)
+    cols = {"id": cn(T.INT4, np.arange(1, n + 1, dtype=np.int32)),
+            "cat": Column(type=T.TEXT, data=cat, valid=ones,
+                          dictionary=list(CATS))}
+    cols.update({f: cn(T.INT4, v) for f, v in fks.items()})
+    cols["x"] = cn(T.FLOAT8, x, xv)
+    cols["y"] = cn(T.FLOAT8, y, yv)
+    db = Database()
+    db.create(Table.from_columns("t0", cols))
+    return db, (cat, fks["cid"], x, y)
+
+
+def _close(a, b, rel=1e-9) -> bool:
+    return a == b or math.isclose(a, b, rel_tol=rel, abs_tol=1e-9)
+
+
+def _check_t0(name: str, rows, data) -> None:
+    """Counts exact against numpy int64; float8 sums and averages to rel
+    1e-9 against numpy bincount."""
+    import numpy as np
+    cat, cid, x, y = data
+    if name == "agg_group":
+        cnt = np.bincount(cat, minlength=26)
+        sx = np.bincount(cat, weights=x, minlength=26)
+        sy = np.bincount(cat, weights=y, minlength=26)
+        if len(rows) != 26:
+            raise AssertionError(f"agg_group: {len(rows)} groups")
+        for (c, n_, s, a), k in zip(rows, range(26)):
+            if (c != CATS[k] or n_ != int(cnt[k]) or not _close(s, sx[k])
+                    or not _close(a, sy[k] / cnt[k])):
+                raise AssertionError(f"agg_group {c}: {(n_, s, a)} vs "
+                                     f"{(int(cnt[k]), sx[k], sy[k] / cnt[k])}")
+        return
+    if name == "rollup":
+        g = cat.astype(np.int64) * 8 + cid % 8
+        cnt = np.bincount(g, minlength=208)
+        sx = np.bincount(g, weights=x, minlength=208)
+        want = {}
+        for k in range(208):
+            want[(CATS[k // 8], k % 8)] = (int(cnt[k]), sx[k])
+        for c in range(26):
+            want[(CATS[c], None)] = (int(cnt[c * 8:c * 8 + 8].sum()),
+                                     float(sx[c * 8:c * 8 + 8].sum()))
+        want[(None, None)] = (len(cat), float(x.sum()))
+        if len(rows) != len(want):
+            raise AssertionError(f"rollup: {len(rows)} rows, expected "
+                                 f"{len(want)}")
+        for c, m, n_, s in rows:
+            wn, ws = want[(c, m)]
+            if n_ != wn or not _close(s, ws):
+                raise AssertionError(f"rollup {(c, m)}: {(n_, s)} vs "
+                                     f"{(wn, ws)}")
+        return
+    if name == "filter":
+        m = (x < 25.0) & (y > 10.0)
+        want = (int(m.sum()), float(x[m].sum()))
+    else:
+        want = (len(x), float(x.sum()), float(y.mean()))
+    got = rows[0]
+    if got[0] != want[0] or not all(_close(a, b) for a, b in
+                                    zip(got[1:], want[1:])):
+        raise AssertionError(f"{name}: {got} vs {want}")
+
+
+def _run_t0(db, name: str, force: bool = False):
+    """(rows, perfmon counts, seconds) of one query through the planner;
+    `force` overrides the cost model (debug_force_tpupreagg)."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    t0 = time.perf_counter()
+    with override(debug_force_tpupreagg=force):
+        pq = plan_query(ast.parse(T0_SQL[name]), db)
+        rows = pq.execute()
+    torch.cuda.synchronize()
+    return rows, dict(pq.perfmon.counts), time.perf_counter() - t0
+
+
+def phase_testdb(seed: int, log2n: int, gpu: str) -> dict:
+    """agg_group, rollup, filter and agg_nogrp over a 2^log2n-row t0."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.config import config
+    from pg_strom_tpu_torch.exec.devcache import TCACHE, chunk_capacity
+    from pg_strom_tpu_torch.ops import preagg_fused as pf
+    n = 1 << log2n
+    t0 = time.perf_counter()
+    db, data = _t0_db(seed + 1, n)
+    _log(f"t0: {n} rows generated in {time.perf_counter() - t0:.1f} s")
+    nchunks = -(-n // chunk_capacity(n))
+    out = {"timing": {}}
+    TCACHE.clear()
+    with override(tcache_size_mb=32768):
+        _log(f"t0: tcache_size_mb={config.tcache_size_mb} "
+             f"chunk_rows={config.chunk_rows} chunks={nchunks}")
+        pf.fused_cuda.launches = 0
+        for name in ("agg_group", "rollup", "filter", "agg_nogrp"):
+            before = pf.fused_cuda.launches
+            force = False
+            rows, counts, cold = _run_t0(db, name)
+            if not (counts.get("device_chunks", 0)
+                    or counts.get("recheck_chunks", 0)):
+                _log(f"t0 {name}: the cost model kept the query on the host "
+                     f"({cold * 1e3:.3f} ms); rerun with "
+                     "debug_force_tpupreagg")
+                force = True
+                rows, counts, cold = _run_t0(db, name, force)
+            k2 = pf.fused_cuda.launches - before
+            _log(f"t0 {name}: cold {cold * 1e3:.3f} ms [{gpu}], K2 launches "
+                 f"{k2}, perfmon {counts}")
+            dev = counts.get("device_chunks", 0)
+            if (counts.get("recheck_chunks", 0) or
+                    counts.get("unported_host_exact", 0) or dev != nchunks):
+                raise AssertionError(f"t0 {name}: perfmon {counts}, "
+                                     f"expected {nchunks} device chunks and "
+                                     "no replay")
+            if name in ("agg_group", "rollup") and k2 < 1:
+                raise AssertionError(f"t0 {name}: K2 never launched")
+            _check_t0(name, rows, data)
+            ladder = {c: counts.get(c, 0) for c in
+                      ("salt_retries", "sort_fallbacks", "dense_fallbacks")}
+            warm, k2w = [], []
+            for _ in range(5 if name in ("agg_group", "rollup") else 1):
+                before = pf.fused_cuda.launches
+                rows, counts, dt = _run_t0(db, name, force)
+                _check_t0(name, rows, data)
+                warm.append(dt)
+                k2w.append(pf.fused_cuda.launches - before)
+            if name == "agg_group" and min(k2w) < 1:
+                raise AssertionError("t0 agg_group: the warm run skipped K2")
+            med = statistics.median(warm)
+            out["timing"][name] = {"cold_ms": cold * 1e3, "forced": force,
+                                   "warm_ms": med * 1e3,
+                                   "warm_all_ms": [w * 1e3 for w in warm]}
+            _log(f"t0 {name} [{gpu}]: exact vs numpy; ladder {ladder}; "
+                 f"cold {cold * 1e3:.3f} ms, warm median {med * 1e3:.3f} ms "
+                 f"of {[round(w * 1e3, 3) for w in warm]} "
+                 f"(K2 launches per warm run {k2w}, warm perfmon {counts})")
+        out["k2_launches"] = pf.fused_cuda.launches
+        out["chunk"] = _time_k2_chunk(db, gpu)
+    del db
+    TCACHE.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time(fn, reps):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _t0_chunk_lanes(db, G: int):
+    """agg_group's K2 inputs on the first resident t0 chunk at G buckets
+    (the cold run's G = 1024, the warm run's G = 32)."""
+    import torch
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.exec.devcache import TCACHE, chunk_capacity
+    from pg_strom_tpu_torch.expr.lower_torch import DVal
+    t = db.get("t0")
+    names = t.column_names
+    cc = next(iter(TCACHE.chunks_for(t, names, chunk_capacity(t.nrows))))
+    pl = dict(zip(names, cc.planes))
+    dev = pl["cat"][0].device
+    mask = torch.arange(pl["cat"][0].shape[0], device=dev) < cc.nrows
+    key = DVal(T.TEXT, pl["cat"][0], pl["cat"][1])
+    x = DVal(T.FLOAT8, pl["x"][0], pl["x"][1])
+    y = DVal(T.FLOAT8, pl["y"][0], pl["y"][1])
+    aggs = [_inst("count"), _inst("sum", T.FLOAT8), _inst("avg", T.FLOAT8)]
+    kd = key.data.to(torch.int64)
+    seg = torch.where(mask, kd.to(torch.int32),
+                      torch.full_like(key.data, G))
+    return [key], aggs, [[], [x], [y]], mask, seg, cc.nrows
+
+
+def _time_k2_chunk(db, gpu: str) -> dict:
+    """K2 alone and its plain version on the 2^26-row agg_group chunk, for
+    G = 32 and G = 1024."""
+    from pg_strom_tpu_torch.ops import preagg_fused as pf
+    res = {}
+    for G in (32, 1024):
+        keys, aggs, vals, mask, seg, n = _t0_chunk_lanes(db, G)
+        err, plan, (inputs, sc, seg), _ = _k2_compare(
+            f"t0 chunk G={G}", keys, aggs, vals, mask, seg, G, n, True)
+
+        def kern():
+            return pf.fused_cuda(plan, seg, inputs, sc, G, n)
+
+        def plain():
+            return pf.fused_reference(plan, seg, inputs, sc, G, n)
+        p1 = _time(plain, 1)
+        k1 = _time(kern, 10)
+        k2 = _time(kern, 10)
+        p2 = _time(plain, 1)
+        from pg_strom_tpu_torch.ops.preagg_pallas import tile_columns
+        Kt, smem = tile_columns(G, plan.ncols, True)
+        res[G] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err}
+        _log(f"K2 at the agg_group chunk ({n} rows, G={G}, K={plan.ncols}, "
+             f"{-(-plan.ncols // Kt)} column tile(s) of {Kt}, {smem} B shared "
+             f"memory) [{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch "
+             f"{p1:.4f} / {p2:.4f} ms")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the K4 path (use_pallas_reduce, the fused kernel off)
+# ---------------------------------------------------------------------------
+
+def phase_k4(seed: int, log2n: int, gpu: str) -> dict:
+    import torch
+    from pg_strom_tpu_torch import execute, override
+    from pg_strom_tpu_torch.exec.devcache import TCACHE
+    from pg_strom_tpu_torch.ops import preagg_pallas as pp
+    from pg_strom_tpu_torch.ops import preagg_fused as pf
+    n = 1 << log2n
+    db, data = _t0_db(seed + 2, n)
+    sql = T0_SQL["agg_group"]
+    with override(debug_force_tpupreagg=True):
+        k2_rows = execute(sql, db)
+    _check_t0("agg_group", k2_rows.rows, data)
+    pp.pallas_cuda.launches = 0
+    before = pf.fused_cuda.launches
+    with override(use_fused_preagg=False, use_pallas_reduce=True,
+                  debug_force_tpupreagg=True):
+        k4_rows = execute(sql, db)
+    launches = pp.pallas_cuda.launches
+    if launches < 1 or pf.fused_cuda.launches != before:
+        raise AssertionError(f"K4 path: K4 launched {launches} times, K2 "
+                             f"{pf.fused_cuda.launches - before}")
+    if k4_rows.formatted(-3) != k2_rows.formatted(-3):
+        raise AssertionError("K4 path rows differ from the K2 path's")
+    _log(f"K4 path: agg_group over {n} rows, K4 launches {launches}, rows "
+         "equal to the K2 run's as PostgreSQL text")
+    res = _time_k4(db, gpu)
+    res["launches"] = launches
+    del db
+    TCACHE.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _time_k4(db, gpu: str) -> dict:
+    """K4 alone and its plain version on agg_group's value matrix."""
+    from pg_strom_tpu_torch.ops import preagg_pallas as pp
+    from pg_strom_tpu_torch.ops.preagg_mxu import (build_mxu_columns,
+                                                   mxu_recipes,
+                                                   mxu_shadow_cols)
+    keys, aggs, vals, mask, seg, n = _t0_chunk_lanes(db, 32)
+    V, _ = build_mxu_columns(keys, aggs, vals, mask, seg.shape[0],
+                             dense_key=True)
+    _, slotr, _ = mxu_recipes([k.t for k in keys], aggs,
+                              [tuple(v.t for v in vs) for vs in vals],
+                              dense_key=True)
+    fc = mxu_shadow_cols(slotr)
+    err, S = _k4_compare("t0 agg_group", keys, aggs, vals, mask, seg, 32, n,
+                         True)
+    seg = seg.contiguous()
+    p1 = _time(lambda: pp.pallas_reduce_reference(V, seg, 32, n, fc), 1)
+    k1 = _time(lambda: pp.pallas_cuda(V, seg, 32, n, fc), 10)
+    k2 = _time(lambda: pp.pallas_cuda(V, seg, 32, n, fc), 10)
+    p2 = _time(lambda: pp.pallas_reduce_reference(V, seg, 32, n, fc), 1)
+    _log(f"K4 at the agg_group value matrix ({n} rows, G=32, S={S}) "
+         f"[{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch "
+         f"{p1:.4f} / {p2:.4f} ms")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: device path vs host-exact tier
 # ---------------------------------------------------------------------------
 
@@ -477,6 +982,21 @@ def phase_small(seed: int) -> None:
         _rows_equal(dev_rows, host_rows)
     _log(f"small table ({n} rows, NULLs and NaN): device path == host-exact "
          f"tier for {len(SMALL_SQL)} queries")
+    db, _ = _t0_db(seed + 3, n, nulls=True)
+    for name, sql in T0_SQL.items():
+        with override(debug_force_tpupreagg=True):
+            dev_rows = _sorted(execute(sql, db).rows)
+        with override(enable_tpupreagg=False):
+            host_rows = _sorted(execute(sql, db).rows)
+        _rows_equal(dev_rows, host_rows)
+    _log(f"small t0 ({n} rows, NULLs and NaN): device path == host-exact "
+         f"tier for {len(T0_SQL)} queries")
+
+
+def _sorted(rows):
+    return sorted(rows, key=lambda r: tuple((v is None, v if v is not None
+                                             and v == v else 0)
+                                            for v in r[:2]))
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +1008,8 @@ def main(argv=None) -> int:
                     help="flagship table size (2^N rows; default 27)")
     ap.add_argument("--kernel-rows-log2", type=int, default=20,
                     help="rows of the kernel-vs-plain cases (default 20)")
+    ap.add_argument("--k4-rows-log2", type=int, default=24,
+                    help="t0 size of the K4 path (2^N rows; default 24)")
     args = ap.parse_args(argv)
 
     import torch
@@ -510,20 +1032,25 @@ def main(argv=None) -> int:
 
     from pg_strom_tpu_torch.ops import cuda as kc
     t0 = time.perf_counter()
-    kc.k1_library()
-    how = (f"nvcc {kc.build_seconds:.2f} s" if kc.build_seconds is not None
-           else "already built from this source")
-    _log(f"K1 build: {time.perf_counter() - t0:.2f} s ({how}) -> "
-         f"{os.path.relpath(kc.library_path())}")
+    kc.library()
+    how = (f"nvcc {kc.build_seconds:.2f} s, one process per source"
+           if kc.build_seconds is not None
+           else "already built from these sources")
+    _log(f"kernel build (K1, K2, K4): {time.perf_counter() - t0:.2f} s "
+         f"({how}) -> {os.path.relpath(kc.library_path())}")
     for line in (kc.build_log or "").splitlines():
-        if "ptxas" in line:
+        if "ptxas" in line or line.startswith("=="):
             _log(f"  {line.strip()}")
 
     err = phase_kernels(args.seed, args.kernel_rows_log2)
+    err = max(err, phase_kernels_k2k4(args.seed, args.kernel_rows_log2))
     timing = phase_slice(args.seed, args.rows_log2, gpu)
+    t0db = phase_testdb(args.seed, args.rows_log2, gpu)
+    k4 = phase_k4(args.seed, args.k4_rows_log2, gpu)
     phase_small(args.seed)
     _log(f"total {time.perf_counter() - t_start:.1f} s [{gpu}]")
 
+    chunk = t0db["chunk"]
     print(json.dumps({"kernels": [{
         "name": "preagg_fused2 (K1)",
         "route": "cuda",
@@ -533,6 +1060,24 @@ def main(argv=None) -> int:
         "max_abs_err": max(err, timing["chunk_err"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
+    }, {
+        "name": "preagg_fused (K2)",
+        "route": "cuda",
+        "source": "pg_strom_tpu_torch/ops/cuda/preagg_fused.cu",
+        "replaces": "pg_strom_tpu/ops/preagg_fused.py:284",
+        "launches": t0db["k2_launches"],
+        "max_abs_err": max(err, chunk[32]["err"], chunk[1024]["err"]),
+        "ms": chunk[32]["ms"],
+        "plain_ms": chunk[32]["plain_ms"],
+    }, {
+        "name": "preagg_pallas (K4)",
+        "route": "cuda",
+        "source": "pg_strom_tpu_torch/ops/cuda/preagg_pallas.cu",
+        "replaces": "pg_strom_tpu/ops/preagg_pallas.py:46",
+        "launches": k4["launches"],
+        "max_abs_err": max(err, k4["err"]),
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

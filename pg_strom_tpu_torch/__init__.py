@@ -6,12 +6,14 @@ beside it slice by slice, main path first, and imports `torch` but never
 `pg_strom_tpu` module would import jax); each TPU Pallas kernel becomes a
 hand-written Hopper kernel with a plain PyTorch version beside it.
 
-The first slice is the grouped pre-aggregation of one table:
+The ported path is the pre-aggregation of one table, grouped or not:
 `sql.execute` -> `plan/planner._run_agg` -> `exec/preagg_exec.PreAggExecutor`
--> the v2 plan of `ops/preagg_fused2.derive_v2_plan` -> the CUDA kernel in
-`ops/cuda/preagg_fused2.cu` -> host absorb, merge and finalize.  Plan
-routes whose executors are not ported yet raise NotImplementedError naming
-their ROADMAP item.
+-> either the v2 plan of `ops/preagg_fused2.derive_v2_plan` on the CUDA
+kernel K1, or the expression lowering (`expr/lower_torch.py`) and a
+strategy of `ops/preagg.build_preagg_fn` (column sums on K2 or K4,
+scatter, sort, ungrouped) -> host absorb, merge and finalize.  Plan routes
+whose executors are not ported yet raise NotImplementedError naming their
+ROADMAP item.
 
 The device is explicit (`config.device`, default "cuda"): with "cuda" and
 no GPU the port raises; "cpu" runs the kernels' plain PyTorch versions.

@@ -85,6 +85,7 @@ class CachedChunk:
     capacity: int
     recheck_any: bool
     planes: Optional[tuple]      # per-column plane tuples; None => host path
+    streamed: bool = False       # uploaded for this query only, not cached
 
     def host_chunk(self, table: Table) -> Chunk:
         """(Re)build the host-side padded chunk, e.g. for CPU replay."""
@@ -209,8 +210,10 @@ class DeviceChunkCache:
                 dev: torch.device, pm=None) -> Iterator[CachedChunk]:
         for start in range(0, n, cap):
             self.streamed += 1
-            yield self._load(table, names, start, min(start + cap, n), cap,
-                             dev, pm)[0]
+            cc = self._load(table, names, start, min(start + cap, n), cap,
+                            dev, pm)[0]
+            cc.streamed = True
+            yield cc
 
 
 TCACHE = DeviceChunkCache()

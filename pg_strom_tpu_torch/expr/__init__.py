@@ -1,8 +1,8 @@
 """Expression engine: typed IR, function catalog and exact host evaluation.
 
-The device lowering of the reference (expr/lower_jax.py) becomes
-expr/lower_torch.py; this slice ports only its schema helpers — the
-Lowerer is the next item of the port (ROADMAP queue 1).
+The device lowering of the reference (expr/lower_jax.py) is
+expr/lower_torch.py: the Lowerer evaluates a typed tree with torch ops on
+the planes' device, with the reference's error lanes and numeric window.
 """
 
 from .ir import (  # noqa: F401

@@ -1,3 +1,5 @@
-"""Device operators.  This slice ports the grouped pre-aggregation path:
-ops/preagg.py (host half), ops/preagg_mxu.py (host half) and
-ops/preagg_fused2.py, whose kernel is hand-written CUDA in ops/cuda/."""
+"""Device operators.  The grouped pre-aggregation path: ops/preagg.py
+(strategies and host finalization), ops/preagg_mxu.py (the column-sum
+contract), ops/hashing.py, ops/sort.py (argsort_i32), and the kernels K1
+(ops/preagg_fused2.py), K2 (ops/preagg_fused.py) and K4
+(ops/preagg_pallas.py), written by hand in CUDA under ops/cuda/."""

@@ -1,13 +1,19 @@
 """Build and load the port's hand-written CUDA kernels.
 
-nvcc compiles the `.cu` sources of this directory into one shared library
-with a plain C interface (no PyTorch headers, so it builds in seconds), and
-ctypes binds it; the wrappers pass `data_ptr()`s and PyTorch's current
-stream.  The library is built at first use into `pg_strom_tpu_torch/_build/`
-(listed in .gitignore), under a name keyed by a hash of the sources and the
-flags, and moved into place with an atomic rename so that concurrent
-processes never load a half-written file.  A missing nvcc, a failed build
-or a failed launch raises: no kernel gives way to its plain version.
+nvcc compiles every `.cu` source of this directory (SOURCES) into an
+object file, all of them at once in parallel processes, and links them
+into one shared library with a plain C interface (no PyTorch headers, so
+it builds in seconds); ctypes binds it, and the wrappers pass
+`data_ptr()`s and PyTorch's current stream.  The library is built at first
+use into `pg_strom_tpu_torch/_build/` (listed in .gitignore), under a name
+keyed by a hash of the sources and the flags, and moved into place with an
+atomic rename so that concurrent processes never load a half-written
+file.  A missing nvcc, a failed build or a failed launch raises: no kernel
+gives way to its plain version.
+
+  K1  preagg_fused2.cu  fused pre-aggregation over raw column planes
+  K2  preagg_fused.cu   fused pre-aggregation over encoded lanes
+  K4  preagg_pallas.cu  segmented column sums of a value matrix
 """
 
 from __future__ import annotations
@@ -23,14 +29,13 @@ import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
-SOURCES = ("preagg_fused2.cu",)
+SOURCES = ("preagg_fused2.cu", "preagg_fused.cu", "preagg_pallas.cu")
 # sm_90a: Hopper with its arch-specific features; --fmad=false keeps float32
 # arithmetic IEEE-identical to the plain PyTorch versions (no contraction
 # of a multiply and an add into one rounding); -Xptxas -v reports
 # registers, shared memory and spills into the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -68,35 +73,59 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(_DIR, s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
-                           f"{r.stdout}{r.stderr}")
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpd:
+        objs, procs = [], []
+        for s in SOURCES:
+            o = os.path.join(tmpd, s.replace(".cu", ".o"))
+            objs.append(o)
+            procs.append((s, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(_DIR, s)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        for s, p in procs:
+            out, err = p.communicate()
+            logs.append(f"== {s}\n{out}{err}")
+            if p.returncode != 0:
+                failed.append(f"{s} (exit {p.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                               + "\n".join(logs))
+        tmp = os.path.join(tmpd, "lib.so")
+        r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {r.returncode}):\n"
+                               f"{r.stdout}{r.stderr}")
+        os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stderr
+    build_log = "\n".join(logs)
     return so
 
 
-def k1_library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
             L = ctypes.CDLL(build())
-            c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+            c_int, c_ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
             L.pgstrom_k1_launch.restype = c_int
             L.pgstrom_k1_launch.argtypes = [
                 c_ptr, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
-                ctypes.c_longlong, c_int, c_int, c_int, c_int, c_int, c_int,
+                c_ll, c_int, c_int, c_int, c_int, c_int, c_int,
                 c_int, c_int, c_ptr, c_ptr, c_int, c_int, ctypes.c_size_t,
                 c_ptr]
+            L.pgstrom_k2_launch.restype = c_int
+            L.pgstrom_k2_launch.argtypes = [
+                c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_ll, c_int,
+                c_int, c_int, c_int, c_ptr, c_ptr, c_int, c_int, c_int,
+                ctypes.c_size_t, c_ptr]
+            L.pgstrom_k4_launch.restype = c_int
+            L.pgstrom_k4_launch.argtypes = [
+                c_ptr, c_ptr, c_ptr, c_ll, c_int, c_int, c_int, c_int,
+                c_ptr, c_ptr, c_int, c_int, c_int, ctypes.c_size_t, c_ptr]
             L.pgstrom_cuda_error_string.restype = ctypes.c_char_p
             L.pgstrom_cuda_error_string.argtypes = [c_int]
             _lib = L
@@ -104,5 +133,5 @@ def k1_library() -> ctypes.CDLL:
 
 
 def cuda_error_text(code: int) -> str:
-    msg = k1_library().pgstrom_cuda_error_string(code)
+    msg = library().pgstrom_cuda_error_string(code)
     return f"{msg.decode() if msg else 'unknown error'} (cudaError {code})"

@@ -935,7 +935,7 @@ def fused2_cuda(sig: V2Sig, planes: Sequence[torch.Tensor], nrows: int,
     (ints int64[G, K], shadow float32[G, K]), same contract as
     fused2_reference.  Raises on a build or launch failure."""
     import ctypes
-    from .cuda import k1_library, cuda_error_text
+    from .cuda import library, cuda_error_text
     prog = lower_program(sig, pred)
     dev = planes[0].device
     N = planes[0].shape[0]
@@ -946,7 +946,7 @@ def fused2_cuda(sig: V2Sig, planes: Sequence[torch.Tensor], nrows: int,
                              f"{p.device}: need contiguous 1-D "
                              f"int32/float32/int64/bool planes of length {N} "
                              f"on {dev}")
-    lib = k1_library()
+    lib = library()
     n = max(0, min(int(nrows), N))
     K = prog.ncols
     desc_np, ni, nu, nf4 = _descriptor(prog, planes, scal)

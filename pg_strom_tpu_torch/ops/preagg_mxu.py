@@ -1,28 +1,48 @@
-"""MXU-layout grouped aggregation: the host half.
+"""MXU-layout grouped aggregation: the N x S value-matrix contract.
 
-The reference's ops/preagg_mxu.py computes every additive partial with one
-one-hot matmul over an N x S value matrix (8-bit integer limbs, signed
-float4 digit windows, |v| shadow columns) and recovers exact results on
-the host in python big-int arithmetic.  The v2 kernel (ops/preagg_fused2.py)
-emits the same output contract, so this slice of the PyTorch port carries
-the host side: the slot recipes, the overflow (host replay) decision, the
-exact extraction and the absorb into the executor's group states.  The
-device-side column build and reduce (build_mxu_columns, mxu_reduce) are
-ROADMAP queue 1, "Pre-aggregation XLA strategies".
+The reference (pg_strom_tpu/ops/preagg_mxu.py) computes every additive
+partial of a grouped aggregate as per-bucket column sums of an N x S value
+matrix V: 8-bit integer limbs, signed 72-bit float digit windows, key
+constancy blocks (n, sum(kb), sum(kb^2): a Cauchy-Schwarz equality check
+recovers the key or flags a collision) and |v| shadow columns that guard
+the exact window.  The host recovers exact results in python big-int
+arithmetic.  On the TPU the column sums are a one-hot matmul; the port
+keeps the contract and computes the sums as segmented reductions:
+
+  build_mxu_columns  V (bf16, every integer column in [-255, 255]) and
+                     the per-slot float window exponents, in torch;
+  mxu_reduce         exact int64 column sums and float64 shadow sums per
+                     bucket: an int64 index_add_ over SEG_ROWS row blocks
+                     (plain PyTorch, as the reference's XLA code), or K4
+                     (ops/preagg_pallas.py) under config.use_pallas_reduce;
+  host side          recipes, overflow (host replay) decision, extraction
+                     and absorb into the executor's group states.
+
+The fused kernel K2 (ops/preagg_fused.py) builds the same sums without
+materializing V; both paths share the recipe walk, so the layout cannot
+drift.  Unsigned lanes ride as int64 (two's-complement bits of the u64).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..sqltypes import T
+
+# rows per reduction block of the plain mxu_reduce (the reference's
+# per-segment f32 exactness bound; here it bounds the int64 copy of V)
+SEG_ROWS = 1 << 16
 
 F4_LIMBS = 9
 F4_WINDOW = 8 * F4_LIMBS         # 72-bit fixed-point window for float4 sums
 
+_MXU_KINDS = {"nrows", "count", "sum_i", "sum_f", "sumsq_i", "sumsq_f",
+              "sum_x", "sum_y", "sum_xy", "sumsq_x", "sumsq_y"}
+_F64_KINDS = {"sumsq_f", "sum_x", "sum_y", "sum_xy", "sumsq_x", "sumsq_y"}
 _KEY_OK_TYPES = {T.BOOL, T.INT2, T.INT4, T.DATE, T.TEXT, T.BPCHAR,
                  T.INT8, T.TIME, T.TIMESTAMP}
 # 64-bit key lanes ride as TWO independent 32-bit word blocks: constancy of
@@ -45,6 +65,32 @@ def mxu_dense_supported(key_types: Sequence[T]) -> bool:
     range exceeds G-2 sets `dense_fail` and the executor re-dispatches the
     generic 'mxu' strategy."""
     return (len(key_types) == 1 and key_types[0] in _KEY_OK_TYPES)
+
+
+# float8 double-float blocks widen a plan by ~19 columns per slot.  On the
+# card f64 kinds ride the column sums (K2), as on the TPU; on the CPU (the
+# tests) they take the scatter side path, as the reference does on its CPU
+# backend.  Tests force them on explicitly in both packages.
+F64_BLOCKS_ON_CPU = False
+
+
+def _f64_blocks_enabled() -> bool:
+    from ..config import config
+    return config.device != "cpu" or F64_BLOCKS_ON_CPU
+
+
+def _kind_mxu_ok(kind: str, argtype: Optional[T]) -> bool:
+    if kind not in _MXU_KINDS:
+        return False
+    if kind == "sum_f":
+        if argtype is T.FLOAT4:
+            return True
+        return argtype is T.FLOAT8 and _f64_blocks_enabled()
+    if kind in _F64_KINDS:
+        return _f64_blocks_enabled()
+    if kind == "sumsq_i":
+        return argtype in (T.INT2, T.INT4)
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +129,280 @@ class _KeyRecipe:
     # 64-bit keys: the hi-word block (sum_limbs/sumsq_limbs hold the lo word)
     sum_limbs_hi: list[int] = dataclasses.field(default_factory=list)
     sumsq_limbs_hi: list[int] = dataclasses.field(default_factory=list)
+
+
+def mxu_recipes(key_types: Sequence[T], aggs, arg_types: Sequence[tuple],
+                dense_key: bool = False):
+    """(key_recipes, per-agg {kind: _SlotRecipe}, ncols).
+
+    Column 0 is always the bucket row count (mask).  aggs[i].slots with
+    arg types arg_types[i] drive the slot walk.  dense_key (the
+    'mxu_dense' strategy): buckets ARE biased key values, so no key
+    recovery/constancy columns are emitted at all."""
+    c = 1                                    # col 0: rows-per-bucket
+    keyr: list[_KeyRecipe] = []
+    for t in [] if dense_key else key_types:
+        if t in _KEY_WIDE_TYPES:
+            s_lo = list(range(c, c + 4)); c += 4
+            q_lo = list(range(c, c + 8)); c += 8
+            s_hi = list(range(c, c + 4)); c += 4
+            q_hi = list(range(c, c + 8)); c += 8
+            nv = c; c += 1
+            keyr.append(_KeyRecipe(s_lo, q_lo, nv, 1 << 63, t,
+                                   sum_limbs_hi=s_hi, sumsq_limbs_hi=q_hi))
+        else:
+            s = list(range(c, c + 5)); c += 5
+            q = list(range(c, c + 8)); c += 8
+            nv = c; c += 1
+            keyr.append(_KeyRecipe(s, q, nv, 1 << 31, t))
+    slotr: list[dict[str, _SlotRecipe]] = []
+    nf4 = 0
+    for inst, at in zip(aggs, arg_types):
+        a_t = at[0] if at else None
+        d: dict[str, _SlotRecipe] = {}
+        for kind in inst.slots:
+            if not _kind_mxu_ok(kind, a_t):
+                continue
+            if kind in ("nrows", "count"):
+                d[kind] = _SlotRecipe(kind, [c]); c += 1
+            elif kind == "sum_i":
+                d[kind] = _SlotRecipe(kind, list(range(c, c + 8)),
+                                      okcnt=c + 8, shadow=c + 9,
+                                      bias_bits=63)
+                c += 10
+            elif kind == "sumsq_i":
+                d[kind] = _SlotRecipe(kind, list(range(c, c + 8)))
+                c += 8
+            elif kind == "sum_f" and a_t is T.FLOAT4:
+                d[kind] = _SlotRecipe(kind, list(range(c, c + F4_LIMBS)),
+                                      shadow=c + F4_LIMBS,
+                                      f4_slot_no=nf4)
+                nf4 += 1
+                c += F4_LIMBS + 1
+            else:
+                # f64 additive quantity: signed-digit double-float fixed
+                # point (head + residual tail, each its own 72-bit window)
+                L = F4_LIMBS
+                d[kind] = _SlotRecipe(
+                    kind,
+                    limbs=list(range(c, c + L)),
+                    lo_limbs=list(range(c + L, c + 2 * L)),
+                    shadow=c + 2 * L,
+                    f4_slot_no=nf4, lo_slot_no=nf4 + 1)
+                nf4 += 2
+                c += 2 * L + 1
+        slotr.append(d)
+    return keyr, slotr, c
+
+
+# ---------------------------------------------------------------------------
+# device side
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_BIAS63 = -(1 << 63)             # + 2^63 on u64 lanes held as int64
+
+
+def _mask0(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    return torch.where(ok, x, torch.zeros_like(x))
+
+
+def _u64_limbs(u: torch.Tensor, nlimbs: int) -> list[torch.Tensor]:
+    """8-bit limbs, low first, of u64 lanes held as int64 bits."""
+    return [(u >> (8 * j)) & 0xFF for j in range(nlimbs)]
+
+
+def _exact_pow2_f32(e: torch.Tensor) -> torch.Tensor:
+    """Bit-exact 2^e (float32) for int e in [-126, 127]."""
+    bits = ((e.to(torch.int64).clamp(-126, 127) + 127) << 23).to(torch.int32)
+    return bits.view(torch.float32)
+
+
+def _f4_scale_exp(absx: torch.Tensor):
+    """(scale, E): scale = 2^-E exact power of two with max|v| * scale < 1.
+
+    E = floor(log2(max|v|)) + 1, with the float32 log2 taken as the
+    correctly rounded value of the float64 log2; the bump guards a log2
+    that rounds up to the next power of two.  The reference's XLA f32 log2
+    agrees at and above every power of two; a few ulps below one it may
+    round the other way, giving an E one apart (both windows are valid)."""
+    m = absx.max() if absx.numel() else torch.zeros((), dtype=torch.float32,
+                                                      device=absx.device)
+    m = m.to(torch.float32)
+    tiny = torch.tensor(1e-38, dtype=torch.float32, device=m.device)
+    lg = torch.floor(torch.log2(torch.maximum(m, tiny).to(torch.float64))
+                     .to(torch.float32)).to(torch.float64)
+    # float -> int32 saturates (inf -> INT32_MAX) and the +1 wraps in
+    # int32, as in the reference's XLA arithmetic
+    e = lg.clamp(-(1 << 31), (1 << 31) - 1).to(torch.int64) + 1
+    e = ((e + (1 << 31)) & _M32) - (1 << 31)
+    e = e.clamp(-125, 126)
+    sc = _exact_pow2_f32(-e)
+    bump = (m * sc) >= 1.0                      # guard log2 rounding
+    e = torch.where(bump, e + 1, e)
+    sc = torch.where(bump, sc * 0.5, sc)
+    return sc, e.to(torch.int32)
+
+
+def _f4_limb_cols(x: torch.Tensor, sc: torch.Tensor) -> list[torch.Tensor]:
+    """SIGNED 72-bit fixed-point limbs of one f32 lane, low limb FIRST:
+    column j is digit_j(|x|) * sign(x) in [-255, 255].  NaN lanes
+    contribute 0 digits (the |x| shadow column carries the NaN to the
+    host-replay guard)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    pos = torch.where(x > 0, x, zero)
+    neg = torch.where(x < 0, -x, zero)          # NaN compares false
+    sgn = torch.where(x < 0, -1.0, 1.0).to(torch.float32)
+    v = (pos + neg) * sc
+    high_first = []
+    for _ in range(F4_LIMBS):
+        v = v * 256.0
+        d = torch.floor(v)
+        v = v - d
+        high_first.append(d * sgn)
+    return list(reversed(high_first))
+
+
+def build_mxu_columns(key_vals, aggs, arg_vals, mask: torch.Tensor, n: int,
+                      dense_key: bool = False):
+    """(V bf16 [n, S], per-window exponents int32) in recipe order.
+
+    V is filled column by column in place (an N x S float32 staging matrix
+    would be twice its size)."""
+    cols: list = [mask]                                        # col 0
+    f4_exps: list[torch.Tensor] = []
+
+    for k in [] if dense_key else key_vals:
+        okk = mask & k.valid
+        if k.t in _KEY_WIDE_TYPES:
+            # 64-bit key: biased word pair, one sum/sumsq block per word
+            u = _mask0(k.data.to(torch.int64) ^ _BIAS63, okk)
+            for w in (u & _M32, (u >> 32) & _M32):
+                cols.extend(_u64_limbs(w, 4))
+                cols.extend(_u64_limbs(w * w, 8))
+            cols.append(okk)
+            continue
+        kb = _mask0(k.data.to(torch.int64) + (1 << 31), okk)
+        cols.extend(_u64_limbs(kb, 5))
+        cols.extend(_u64_limbs(kb * kb, 8))
+        cols.append(okk)
+
+    def _f32_signed_block(x32: torch.Tensor):
+        """(signed limbs, exp) of a masked f32 lane."""
+        absx = torch.where(torch.isnan(x32), torch.zeros_like(x32),
+                           x32.abs())
+        sc, e = _f4_scale_exp(absx)
+        return _f4_limb_cols(x32, sc), e
+
+    for inst, vals in zip(aggs, arg_vals):
+        a = vals[0] if vals else None
+        ok = mask if a is None else (mask & a.valid)
+        if len(vals) == 2:
+            ok = mask & vals[0].valid & vals[1].valid
+        for kind in inst.slots:
+            if not _kind_mxu_ok(kind, a.t if a is not None else None):
+                continue
+            if kind == "nrows":
+                cols.append(mask)
+            elif kind == "count":
+                cols.append(ok)
+            elif kind == "sum_i":
+                v = _mask0(a.data.to(torch.int64), ok)
+                cols.extend(_u64_limbs(_mask0(v + _BIAS63, ok), 8))
+                cols.append(ok)
+                cols.append(_mask0(a.data.to(torch.float32).abs(), ok))
+            elif kind == "sumsq_i":
+                v = _mask0(a.data.to(torch.int64), ok)
+                cols.extend(_u64_limbs(v * v, 8))
+            elif kind == "sum_f" and a.t is T.FLOAT4:
+                x = _mask0(a.data.to(torch.float32), ok)
+                absx = torch.where(torch.isnan(x), torch.zeros_like(x),
+                                   x.abs())
+                sc, e = _f4_scale_exp(absx)
+                f4_exps.append(e)
+                cols.extend(_f4_limb_cols(x, sc))
+                cols.append(_mask0(a.data.to(torch.float32).abs(), ok))
+            else:
+                # f64 additive quantity q -> head f32(q) + tail f32(q - head)
+                q = _f64_quantity(kind, vals, ok)
+                hi = q.to(torch.float32)
+                lo = (q - hi.to(torch.float64)).to(torch.float32)
+                hp, he = _f32_signed_block(hi)
+                lp, le = _f32_signed_block(lo)
+                f4_exps.append(he)
+                f4_exps.append(le)
+                cols.extend(hp)
+                cols.extend(lp)
+                cols.append(hi.abs())              # shadow: inf/nan guard
+    # bf16 column matrix: every integer column is in [-255, 255] (exact in
+    # bf16's 8-bit significand); shadow columns are threshold guards with a
+    # 4x band, so bf16 quantization is safe
+    V = torch.empty((n, len(cols)), dtype=torch.bfloat16, device=mask.device)
+    for j, c in enumerate(cols):
+        V[:, j] = c.expand(n)
+    exps = (torch.stack(f4_exps) if f4_exps
+            else torch.zeros(0, dtype=torch.int32, device=mask.device))
+    return V, exps
+
+
+def _f64_quantity(kind: str, vals, ok: torch.Tensor) -> torch.Tensor:
+    """The per-row f64 value each additive f64 slot kind sums."""
+    x = _mask0(vals[0].data.to(torch.float64), ok)
+    if kind in ("sum_f", "sum_x"):
+        return x
+    if kind in ("sumsq_f", "sumsq_x"):
+        return x * x
+    y = _mask0(vals[1].data.to(torch.float64), ok)
+    if kind == "sum_y":
+        return y
+    if kind == "sumsq_y":
+        return y * y
+    if kind == "sum_xy":
+        return x * y
+    raise ValueError(kind)
+
+
+def sat_int64(x: torch.Tensor) -> torch.Tensor:
+    """Value-matrix cells to int64 the way XLA and CUDA convert: toward
+    zero, saturating at the int64 range, NaN -> 0.  Only the columns of a
+    chunk that host replay discards ever hold a non-finite cell."""
+    f = x.to(torch.float32)
+    i = torch.where(torch.isfinite(f), f, torch.zeros_like(f)).to(torch.int64)
+    i = torch.where(f == float("inf"), torch.full_like(i, (1 << 63) - 1), i)
+    return torch.where(f == float("-inf"), torch.full_like(i, -(1 << 63)), i)
+
+
+def mxu_reduce(V: torch.Tensor, seg_id: torch.Tensor, G: int, n: int,
+               fsum_cols=None):
+    """Segmented column sums: (sums int64[G, S] exact ints, fsums
+    float64[G, len(fsum_cols)] for the shadow columns).  seg_id == G drops
+    the row.
+
+    The plain path (both devices) is an int64 index_add_ over SEG_ROWS row
+    blocks, so no int64 copy of the whole V is ever made.  Under
+    config.use_pallas_reduce, with G <= MAX_G, K4 computes it
+    (ops/preagg_pallas.py)."""
+    S = V.shape[1]
+    explicit_shadow = fsum_cols is not None
+    if fsum_cols is None:
+        fsum_cols = list(range(S))
+    from ..config import config as _cfg
+    from .preagg_pallas import pallas_reduce, MAX_G
+    if _cfg.use_pallas_reduce and explicit_shadow and G <= MAX_G:
+        return pallas_reduce(V, seg_id, G, n, list(fsum_cols))
+    dev = V.device
+    seg = seg_id.to(torch.int64).clamp(0, G)
+    fsel = torch.as_tensor(list(fsum_cols), dtype=torch.int64, device=dev)
+    sums = torch.zeros((G + 1, S), dtype=torch.int64, device=dev)
+    fsums = torch.zeros((G + 1, len(fsum_cols)), dtype=torch.float64,
+                        device=dev)
+    for s in range(0, n, SEG_ROWS):
+        blk = V[s:s + SEG_ROWS]
+        sg = seg[s:s + SEG_ROWS]
+        sums.index_add_(0, sg, sat_int64(blk))
+        if len(fsum_cols):
+            fsums.index_add_(0, sg, blk[:, fsel].to(torch.float64))
+    return sums[:G], fsums[:G]
 
 
 def mxu_shadow_cols(slotr) -> list[int]:
@@ -268,11 +588,11 @@ def mxu_absorb(out_host, group_exprs, aggs, key_metas, states, displays,
     its own slot recipes — preagg_fused2.derive_v2_plan)."""
     key_types = [g.type for g in group_exprs]
     arg_types = [tuple(a.type for a in inst.args) for inst in aggs]
-    if recipes is None:
-        raise NotImplementedError(
-            "mxu absorb without v2 recipes: not ported yet (ROADMAP queue "
-            "1: Pre-aggregation XLA strategies)")
-    keyr, slotr = [], recipes
+    if recipes is not None:
+        keyr, slotr = [], recipes
+    else:
+        keyr, slotr, _ = mxu_recipes(key_types, aggs, arg_types,
+                                     dense_key=dense_key)
     if dense_key:
         groups = mxu_dense_groups(out_host, key_types[0], key_metas[0])
     else:

@@ -19,9 +19,9 @@ def tiered_capacity(cap: int, device, pm=None) -> int:
     ensures the kernel library is built and loaded, charging the build to
     the perfmon phase "kernel_build" instead of the first dispatch."""
     if device.type == "cuda":
-        from ..ops.cuda import k1_library
+        from ..ops.cuda import library
         t0 = time.perf_counter()
-        k1_library()
+        library()
         if pm is not None and config.perfmon:
             pm.times["kernel_build"] += time.perf_counter() - t0
             pm.counts["kernel_build"] += 1

@@ -1,5 +1,6 @@
-"""K1 (pg_strom_tpu_torch/ops/cuda/preagg_fused2.cu) against its plain
-PyTorch version, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card: K1 (pg_strom_tpu_torch/ops/cuda/preagg_fused2.cu), K2
+(preagg_fused.cu) and K4 (preagg_pallas.cu).
 
 Needs an NVIDIA GPU and skips without one.  It imports no JAX, so it runs
 on a machine that has only PyTorch and the CUDA toolkit (tests/conftest.py
@@ -43,3 +44,27 @@ def test_kernel_matches_plain_version(cuda_device, name):
     assert plan is not None
     assert cs._compare(plan, pred, cs._device_cols(t, cuda_device),
                        n - 37) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", cs.K2_CASES)
+def test_k2_matches_plain_version(cuda_device, name):
+    """K2 (ops/cuda/preagg_fused.cu): ints bit-equal, same replay."""
+    n = 1 << 16
+    case = cs._k2_case(name, np.random.default_rng(6), n, cuda_device)
+    err, _, _, _ = cs._k2_compare(name, *case[:6], n - 37, case[6])
+    assert err == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [32, 2048])
+@pytest.mark.parametrize("name", ["agg_group", "two_hashed_int4"])
+def test_k4_matches_plain_version(cuda_device, name, G):
+    """K4 (ops/cuda/preagg_pallas.cu): ints bit-equal, same replay."""
+    n = 1 << 16
+    keys, aggs, vals, mask, seg, G0, dense = cs._k2_case(
+        name, np.random.default_rng(7), n, cuda_device)
+    seg = torch.where(seg < G0, seg % G, torch.full_like(seg, G))
+    err, _ = cs._k4_compare(name, keys, aggs, vals, mask, seg, G, n - 37,
+                            dense)
+    assert err == 0

@@ -451,24 +451,39 @@ INELIGIBLE = {
 }
 
 
+_LADDER_COUNTERS = ("device_chunks", "recheck_chunks", "salt_retries",
+                    "sort_fallbacks", "dense_fallbacks")
+
+
 @pytest.mark.parametrize("name", list(INELIGIBLE))
 def test_ineligible_shape_runs_host_exact_and_is_counted(name):
-    """No v2 plan in either package.  The reference offloads the shape to
-    its XLA strategies; the port answers on the host-exact tier, bumps
-    unported_host_exact per chunk, and the rows agree."""
+    """No v2 plan in either package.  Both packages offload the shape to
+    the lowering strategies (K2 column sums, scatter, sort): no chunk is
+    answered by an unported tier, every chunk is counted as a device chunk
+    or a host replay, the ladder counters equal the reference's, and the
+    rows agree.  A float4 sum over +Inf replays through the |x| shadow."""
     factory, query = INELIGIBLE[name]
     rt = factory()
     pt = from_reference(rt)
     rq, pq = query(RP, _cols(RP, rt)), query(PP, _cols(PP, pt))
     assert _derive(r_f2, r_schema, rt, rq) is None
     assert _derive(p_f2, p_schema, pt, pq) is None
-    with R.override(chunk_rows=1 << 11):
-        rrows = RExec(rt, *rq).run()
+    rpm = R.utils.perfmon.Perfmon()
+    with R.override(chunk_rows=1 << 11, force_fused_preagg_cpu=True):
+        rrows = RExec(rt, *rq, perfmon=rpm).run()
     pm = Perfmon()
     with P.override(device="cpu", chunk_rows=1 << 11):
         prows = PExec(pt, *pq, perfmon=pm).run()
-    assert pm.counts["unported_host_exact"] == -(-pt.nrows // (1 << 11))
-    assert not pm.counts.get("device_chunks")
+    nchunks = -(-pt.nrows // (1 << 11))
+    assert pm.counts.get("unported_host_exact", 0) == 0
+    assert (pm.counts.get("device_chunks", 0)
+            + pm.counts.get("recheck_chunks", 0)) == nchunks
+    assert ({c: pm.counts.get(c, 0) for c in _LADDER_COUNTERS}
+            == {c: rpm.counts.get(c, 0) for c in _LADDER_COUNTERS})
+    if name == "f4_inf":
+        assert pm.counts.get("recheck_chunks", 0) >= 1
+    else:
+        assert pm.counts.get("device_chunks", 0) >= 1
     ng = len(rq[1])
     assert _sorted_rows(prows, ng) == _sorted_rows(rrows, ng)
 

@@ -23,6 +23,8 @@ from pg_strom_tpu.datastore import (Database as RDatabase, Table as RTable,
                                     column_from_numpy as rnp)
 from pg_strom_tpu.models.fixtures import make_preagg_test
 from pg_strom_tpu.sql import execute as r_execute
+from pg_strom_tpu.sql import parser as r_ast
+from pg_strom_tpu.plan.planner import plan_query as r_plan_query
 from pg_strom_tpu_torch.datastore import from_reference
 from pg_strom_tpu_torch.plan.planner import plan_query as p_plan_query
 from pg_strom_tpu_torch.sql import parser as p_ast
@@ -102,17 +104,28 @@ def test_v2_query_matches_reference(dbs, name):
 
 
 def test_non_v2_shape_runs_host_exact_visibly(dbs):
-    """Two GROUP BY keys have no v2 plan: the port answers on the host-exact
-    tier, bumps unported_host_exact, and matches the reference."""
+    """Two GROUP BY keys have no v2 plan: both packages run the salted
+    column-sum strategy (K2) and its retry ladder on the device, with the
+    same perfmon counters; no chunk is answered by an unported tier and
+    the rows match the reference."""
     rdb, pdb = dbs
     sql = ("SELECT key, k2, count(*), sum(y), sum(x) FROM t WHERE x > 0.25 "
            "GROUP BY key, k2 ORDER BY key, k2")
-    with _forced({}):
+    with _forced({}), R.override(force_fused_preagg_cpu=True):
+        rq = r_plan_query(r_ast.parse(sql), rdb)
+        want_rows = rq.execute()
         want = r_execute(sql, rdb)
         got, counts = _port_run(sql, pdb)
     assert got.formatted(-3) == want.formatted(-3)
-    assert counts.get("unported_host_exact", 0) >= 1, counts
-    assert not counts.get("device_chunks"), counts
+    assert counts.get("unported_host_exact", 0) == 0, counts
+    assert counts.get("device_chunks", 0) + counts.get("recheck_chunks", 0) \
+        == 1, counts
+    assert counts.get("device_chunks", 0) >= 1, counts
+    ladder = ("device_chunks", "recheck_chunks", "salt_retries",
+              "sort_fallbacks", "dense_fallbacks")
+    assert {c: counts.get(c, 0) for c in ladder} == \
+        {c: rq.perfmon.counts.get(c, 0) for c in ladder}
+    assert len(want_rows) == len(got.rows)
 
 
 def test_explain_analyze_shows_the_kernel_path(dbs):
@@ -156,3 +169,46 @@ def test_unported_routes_raise_not_implemented(dbs, sql):
     with _forced({}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             P.execute(sql, pdb)
+
+
+# ---------------------------------------------------------------------------
+# general grouped aggregation: the star-schema benchmark queries over t0
+# (models/testdb.py) and a wide fixture query
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def testdbs():
+    from pg_strom_tpu.models.testdb import build_testdb
+    rdb = RDatabase()
+    build_testdb(rdb, fact_rows=4096, dim_rows=1000, seed=3)
+    rdb.create(make_preagg_test(nrows=3000))
+    return rdb, from_reference(rdb)
+
+
+TESTDB_QUERIES = {
+    "agg_group": "select cat, count(*), sum(x), avg(y) from t0 group by cat "
+                 "order by cat",
+    "rollup": "select cat, cid % 8, count(*), sum(x) from t0 "
+              "group by rollup(cat, cid % 8) order by 1, 2",
+    "filter": "select count(*), sum(x) from t0 where x < 25.0 and y > 10.0",
+    "agg_nogrp": "select count(*), sum(x), avg(y) from t0",
+    "wide_fixture": (
+        "SELECT key, count(*), sum(smlint_x), avg(integer_x), "
+        "sum(bigint_x), max(bigint_x), min(real_x), sum(real_x), "
+        "avg(float_x), max(float_x), sum(nume_x), min(nume_x), "
+        "stddev(integer_x), corr(float_x, real_x) FROM gpupreagg_test "
+        "GROUP BY key ORDER BY key"),
+}
+
+
+@pytest.mark.parametrize("name", list(TESTDB_QUERIES))
+def test_testdb_query_matches_reference(testdbs, name):
+    rdb, pdb = testdbs
+    sql = TESTDB_QUERIES[name]
+    with _forced({"chunk_rows": 1 << 11}), \
+            R.override(force_fused_preagg_cpu=True, chunk_rows=1 << 11):
+        want = r_execute(sql, rdb)
+        got, counts = _port_run(sql, pdb)
+    assert got.formatted(-3) == want.formatted(-3)
+    assert counts.get("unported_host_exact", 0) == 0, counts
+    assert counts.get("device_chunks", 0) >= 1, counts
