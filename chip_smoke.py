@@ -9,8 +9,9 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
 1. require a CUDA device; print the card's name and power limit
    (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
 2. build the kernel library (K1 ops/cuda/preagg_fused2.cu, K2
-   preagg_fused.cu, K4 preagg_pallas.cu; one nvcc per source, in
-   parallel, sm_90a) and print the build time and the ptxas reports;
+   preagg_fused.cu, K4 preagg_pallas.cu, K3 mxu_lookup.cu; one nvcc per
+   source, in parallel, sm_90a) and print the build time and the ptxas
+   reports;
 3. hold each kernel against its plain PyTorch version on the card, at
    2^20 rows with nrows = 2^20 - 37: K1 over KERNEL_CASES, K2 over
    K2_CASES (dense text key with float8 blocks, hashed int4 keys,
@@ -18,6 +19,9 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    with column tiling, an all-NULL group), K4 over two of those value
    matrices at G = 32 and 2048: `ints` bit-equal and the same host-replay
    decision;
+3c. K3 against its plain version: 2^20 lookups at D in {100, 2048, 40960,
+   65536} and K in {1, 2, 4}, with the edge, padding and out-of-range
+   indexes: bit-equal;
 4. the flagship slice: a port Database holding the flagship table (2^27
    rows: two 2^26-row chunks, int4 key in 0..29, float4 x with 5% NULL,
    int8 y in [0, 2^40) with 5% NULL), then
@@ -30,13 +34,24 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    replayed, K2 launched (agg_group cold at G = 1024 and warm at G = 32,
    rollup on its first rung), counts exact and float8 sums / averages to
    rel 1e-9 against numpy;
+4d. joins in 4b's database: the dimensions t1..t4 (int4 keys 1..40000)
+   and t6 (the same keys in a seeded random order), then join_agg,
+   star_group and t0 x t6 cold and warm: every probe chunk on the
+   device, K3 launched on each, counts and joined ints exact and float8
+   sums to rel 1e-9 against numpy; a torch.profiler pass over 3 warm
+   join_agg runs; K3 alone, its plain version and torch.take on a 2^26-row
+   probe chunk;
 4c. the K4 path: agg_group over a 2^24-row t0 with the fused kernel off
    and use_pallas_reduce on: K4 launched, rows equal to the K2 run's;
-5. a 2^14-row table and a 2^14-row t0 with NULLs and NaN through the
-   device path and the host-exact tier: equal rows;
-6. timings (cold and warm queries, each kernel alone and its plain
-   version at the main path's shapes), each beside the card's name and
-   power limit; then the kernels' JSON line and, last, the `ok` line.
+5. a 2^14-row table, a 2^14-row t0 with NULLs and NaN, and small join
+   tables (inner, left, full, residual ON, a non-unique build, nloops, a
+   post-join qual, fused and pregrouped aggregates) through the device
+   path and the host-exact tier: equal rows;
+6. timings (cold and warm queries, each kernel alone, its plain version,
+   its bound and, where one exists, the single PyTorch call computing
+   the same function, at the main path's shapes), each beside the card's
+   name and power limit; then the card line, the kernels' JSON line and,
+   last, the `ok` line.
 """
 
 from __future__ import annotations
@@ -450,6 +465,53 @@ def phase_kernels_k2k4(seed: int, log2n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: K3 against its plain version
+# ---------------------------------------------------------------------------
+
+K3_CASES = tuple((D, K) for D in (100, 2048, 40960, 65536) for K in (1, 2, 4))
+
+
+def k3_compare(rng, D: int, K: int, n: int) -> int:
+    """K3 on a random D-slot table of K-digit values (padded with a
+    sentinel) against its plain version, over n indexes that include 0,
+    D-1, the padding slots and indexes outside the table; returns the max
+    |kernel - plain| and raises unless it is 0."""
+    import numpy as np
+    import torch
+    from pg_strom_tpu_torch.ops import mxu_lookup as ml
+    dev = torch.device("cuda")
+    sent = (1 << min(8 * K, 31)) - 1
+    vals = torch.from_numpy(rng.integers(0, 1 << (8 * K), D,
+                                         dtype=np.int64)).to(dev)
+    table = ml.encode_table_torch(vals, D, K, pad_value=sent)
+    slots = table.shape[0]
+    idx = rng.integers(0, D, n).astype(np.int32)
+    edge = np.asarray([0, D - 1, D, slots - 1, -1, slots, 1 << 30],
+                      np.int32)
+    idx[:edge.shape[0]] = edge
+    idx = torch.from_numpy(idx).to(dev)
+    k = ml.mxu_lookup_cuda(idx, table, n, sent)
+    p = ml.mxu_lookup_reference(idx, table, n, sent)
+    torch.cuda.synchronize()
+    err = int((k.to(torch.int64) - p.to(torch.int64)).abs().max().item())
+    if not torch.equal(k, p):
+        raise AssertionError(f"K3 D={D} K={K}: differs from the plain "
+                             f"version (max abs diff {err})")
+    return err
+
+
+def phase_kernels_k3(seed: int, log2n: int) -> int:
+    import numpy as np
+    worst = 0
+    for i, (D, K) in enumerate(K3_CASES):
+        worst = max(worst, k3_compare(
+            np.random.default_rng(seed * 1000 + 200 + i), D, K, 1 << log2n))
+        _log(f"K3 case D={D} K={K}: {1 << log2n} lookups bit-equal to the "
+             "plain version (edges, padding and out-of-range included)")
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
 
@@ -610,10 +672,17 @@ def _time_chunk(db, gpu: str) -> dict:
     k2 = timed(kern, 20)
     p2 = timed(plain, 2)
     ms, plain_ms = min(k1, k2), min(p1, p2)
+    # K1 reads its planes once and writes [G, K] int64 sums and the shadow
+    # float sums; it does one add per row and column
+    b = _bound(_tensor_bytes(planes) + plan.G * plan.sig.ncols * 12,
+               cc.nrows * plan.sig.ncols)
     _log(f"K1 at the main-path chunk ({cc.nrows} rows, G={plan.G}, "
          f"K={plan.sig.ncols}) [{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, "
-         f"plain PyTorch {p1:.4f} / {p2:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "chunk_err": err}
+         f"plain PyTorch {p1:.4f} / {p2:.4f} ms, bound {b['bound_ms']:.4f} "
+         f"ms ({b['bound_by']}: {b['bound_bytes']:.0f} B, "
+         f"{b['bound_ops']:.0f} ops), no single PyTorch call")
+    return {"ms": ms, "plain_ms": plain_ms, "chunk_err": err, **b,
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -791,10 +860,37 @@ def phase_testdb(seed: int, log2n: int, gpu: str) -> dict:
                  f"(K2 launches per warm run {k2w}, warm perfmon {counts})")
         out["k2_launches"] = pf.fused_cuda.launches
         out["chunk"] = _time_k2_chunk(db, gpu)
+        # 4d runs inside this database so that t0 is built and uploaded once
+        out["joins"] = phase_joins(db, seed, gpu)
     del db
     TCACHE.clear()
     torch.cuda.empty_cache()
     return out
+
+
+# H100 SXM5 published peaks (NVIDIA data sheet, dense, 700 W): HBM3 and
+# float32 outside the tensor cores.  The kernels' integer adds run on the
+# same CUDA cores, so their operation bound uses the float32 rate.
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time for `nbytes` moved (each input read once, each output
+    written once) and `ops` operations: the larger of the two times."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / CORE_OPS_PER_S * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops}
+
+
+def _tensor_bytes(ts) -> int:
+    """Bytes of distinct tensors (a plane passed twice counts once)."""
+    seen = {}
+    for t in ts:
+        seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
 
 
 def _time(fn, reps):
@@ -855,12 +951,260 @@ def _time_k2_chunk(db, gpu: str) -> dict:
         p2 = _time(plain, 1)
         from pg_strom_tpu_torch.ops.preagg_pallas import tile_columns
         Kt, smem = tile_columns(G, plan.ncols, True)
-        res[G] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err}
+        b = _bound(_tensor_bytes(list(inputs) + [seg])
+                   + G * plan.ncols * 12, n * plan.ncols)
+        res[G] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err,
+                  **b, "library_ms": None}
         _log(f"K2 at the agg_group chunk ({n} rows, G={G}, K={plan.ncols}, "
              f"{-(-plan.ncols // Kt)} column tile(s) of {Kt}, {smem} B shared "
              f"memory) [{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch "
-             f"{p1:.4f} / {p2:.4f} ms")
+             f"{p1:.4f} / {p2:.4f} ms, bound {b['bound_ms']:.4f} ms "
+             f"({b['bound_by']}), no single PyTorch call")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: joins over t0 at full width
+# ---------------------------------------------------------------------------
+
+DIM_ROWS = 40000
+JOIN_SQL = {
+    # fused join+aggregate: K3 probe of the dense t1 table, ungrouped agg
+    "join_agg": "select count(*), sum(t0.x) from t0 join t1 "
+                "on t0.aid = t1.aid where t0.x < 50.0",
+    # pregrouped: K3 maps the probe key to its group, then K2
+    "star_group": "select t1.aid % 40, count(*), sum(t0.x) from t0 "
+                  "join t1 on t0.aid = t1.aid group by t1.aid % 40 "
+                  "order by t1.aid % 40",
+    # pairwise HashJoinExecutor over a dimension loaded unsorted (unique,
+    # not serial): a K3 probe, not the identity branch
+    "t6_join": "select t0.id, t6.w from t0 join t6 on t0.aid = t6.fid "
+               "where t0.x < 0.01",
+}
+
+
+def _add_dims(db, seed: int):
+    """t1..t4 of models/testdb.py (int4 keys 1..40000, no md5 text) and
+    t6(fid, w) with the same keys in a seeded random order; returns w by
+    key."""
+    import numpy as np
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.datastore import Table, column_from_numpy as cn
+    keys = np.arange(1, DIM_ROWS + 1, dtype=np.int32)
+    for i, c in enumerate("abcd", 1):
+        db.create(Table.from_columns(f"t{i}", {f"{c}id": cn(T.INT4, keys)}))
+    rng = np.random.default_rng(seed + 40)
+    fid = rng.permutation(keys)
+    w = rng.integers(-(1 << 30), 1 << 30, DIM_ROWS, dtype=np.int32)
+    db.create(Table.from_columns("t6", {"fid": cn(T.INT4, fid),
+                                        "w": cn(T.INT4, w)}))
+    w_by_key = np.zeros(DIM_ROWS + 1, np.int64)
+    w_by_key[fid] = w
+    return w_by_key
+
+
+def _check_join(name: str, rows, t0cols, w_by_key) -> None:
+    """Counts and the joined ints exact against numpy; float8 sums to rel
+    1e-9."""
+    import numpy as np
+    aid, x = t0cols["aid"], t0cols["x"]
+    if name == "join_agg":
+        m = x < 50.0
+        want = (int(m.sum()), float(x[m].sum()))
+        if len(rows) != 1 or rows[0][0] != want[0] or \
+                not _close(rows[0][1], want[1]):
+            raise AssertionError(f"join_agg: {rows} vs {want}")
+        return
+    if name == "star_group":
+        g = aid % 40
+        cnt = np.bincount(g, minlength=40)
+        sx = np.bincount(g, weights=x, minlength=40)
+        if [r[0] for r in rows] != list(range(40)):
+            raise AssertionError(f"star_group groups {[r[0] for r in rows]}")
+        for k, n_, s_ in rows:
+            if n_ != int(cnt[k]) or not _close(s_, sx[k]):
+                raise AssertionError(f"star_group {k}: {(n_, s_)} vs "
+                                     f"{(int(cnt[k]), sx[k])}")
+        return
+    m = np.flatnonzero(x < 0.01)
+    want = np.stack([m + 1, w_by_key[aid[m]]], axis=1)
+    got = np.asarray(sorted(rows), dtype=np.int64).reshape(-1, 2)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"t6_join: {got.shape[0]} rows vs "
+                             f"{want.shape[0]}, first {got[:3]} vs {want[:3]}")
+
+
+def _plan_on_host(node) -> bool:
+    """Any join or aggregate node the cost model kept on the host."""
+    if node.kind in ("HashJoin", "HashAggregate"):
+        return True
+    return any(_plan_on_host(c) for c in node.children)
+
+
+def _run_join(db, name: str, force: bool):
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    t0 = time.perf_counter()
+    with override(debug_force_offload=force):
+        pq = plan_query(ast.parse(JOIN_SQL[name]), db)
+        rows = pq.execute()
+    torch.cuda.synchronize()
+    return rows, dict(pq.perfmon.counts), time.perf_counter() - t0
+
+
+def phase_joins(db, seed: int, gpu: str) -> dict:
+    """join_agg, star_group and the t6 join over the resident t0."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.exec.devcache import chunk_capacity
+    from pg_strom_tpu_torch.ops import mxu_lookup as ml
+    from pg_strom_tpu_torch.ops import preagg_fused as pf
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    w_by_key = _add_dims(db, seed)
+    t0 = db.get("t0")
+    t0cols = {c: t0.columns[c].data for c in ("aid", "x")}
+    nchunks = -(-t0.nrows // chunk_capacity(t0.nrows))
+    out = {"timing": {}}
+    ml.mxu_lookup_cuda.launches = 0
+    for name in JOIN_SQL:
+        force = _plan_on_host(plan_query(ast.parse(JOIN_SQL[name]), db).root)
+        if force:
+            _log(f"join {name}: the cost model keeps part of the query on "
+                 "the host; run it with debug_force_offload")
+        k3_0, k2_0 = ml.mxu_lookup_cuda.launches, pf.fused_cuda.launches
+        rows, counts, cold = _run_join(db, name, force)
+        k3, k2 = ml.mxu_lookup_cuda.launches - k3_0, \
+            pf.fused_cuda.launches - k2_0
+        _log(f"join {name}: cold {cold * 1e3:.3f} ms [{gpu}], K3 launches "
+             f"{k3}, K2 launches {k2}, perfmon {counts}")
+        if (counts.get("device_chunks", 0) != nchunks
+                or counts.get("recheck_chunks", 0)
+                or counts.get("unported_host_exact", 0)):
+            raise AssertionError(f"join {name}: perfmon {counts}, expected "
+                                 f"{nchunks} device chunks and no replay")
+        if k3 < nchunks:
+            raise AssertionError(f"join {name}: K3 launched {k3} times for "
+                                 f"{nchunks} probe chunks")
+        if name == "star_group" and k2 < nchunks:
+            raise AssertionError(f"join star_group: K2 launched {k2} times")
+        _check_join(name, rows, t0cols, w_by_key)
+        warm, k3w = [], []
+        for _ in range(5 if name != "t6_join" else 3):
+            before = ml.mxu_lookup_cuda.launches
+            rows, counts, dt = _run_join(db, name, force)
+            _check_join(name, rows, t0cols, w_by_key)
+            warm.append(dt)
+            k3w.append(ml.mxu_lookup_cuda.launches - before)
+        if min(k3w) < nchunks:
+            raise AssertionError(f"join {name}: a warm run skipped K3 {k3w}")
+        med = statistics.median(warm)
+        out["timing"][name] = {"cold_ms": cold * 1e3, "forced": force,
+                               "warm_ms": med * 1e3,
+                               "warm_all_ms": [w * 1e3 for w in warm],
+                               "rows": len(rows)}
+        _log(f"join {name} [{gpu}]: exact vs numpy ({len(rows)} rows); cold "
+             f"{cold * 1e3:.3f} ms, warm median {med * 1e3:.3f} ms of "
+             f"{[round(w * 1e3, 3) for w in warm]} (K3 launches per warm "
+             f"run {k3w}, warm perfmon {counts})")
+    out["k3_launches"] = ml.mxu_lookup_cuda.launches
+    # perfmon phases (dispatch, device_wait, materialize) of one warm run
+    from pg_strom_tpu_torch import execute
+    for name in ("join_agg", "t6_join"):
+        with override(perfmon=True,
+                      debug_force_offload=out["timing"][name]["forced"]):
+            text = "\n".join(r[0] for r in execute(
+                "EXPLAIN ANALYZE " + JOIN_SQL[name], db).rows)
+        _log(f"join {name}, EXPLAIN ANALYZE [{gpu}]:\n{text}")
+    out["profile"] = _profile_join_agg(db, gpu)
+    out["chunk"] = _time_k3_chunk(db, gpu)
+    for nm in ("t1", "t2", "t3", "t4", "t6"):
+        db.drop(nm)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_join_agg(db, gpu: str) -> dict:
+    """torch.profiler over 3 warm join_agg runs: device time by kernel
+    (CUDA kernel events only: an op's own entry repeats its kernels' time)
+    and the device's busy share of the runs' wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    _run_join(db, "join_agg", False)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall0 = time.perf_counter()
+        for _ in range(3):
+            _run_join(db, "join_agg", False)
+        wall = (time.perf_counter() - wall0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            rows.append((ev.self_device_time_total / 1e3, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    _log(f"join_agg profile, 3 warm runs [{gpu}]: wall {wall:.3f} ms, "
+         f"device kernels {busy:.3f} ms, busy share {busy / wall:.4f}")
+    for ms, key, cnt in rows[:12]:
+        _log(f"  {ms:10.3f} ms  {cnt:5d}x  {key[:90]}")
+    return {"wall_ms": wall, "device_ms": busy,
+            "top": [(k[:90], ms, c) for ms, k, c in rows[:12]]}
+
+
+def _time_k3_chunk(db, gpu: str) -> dict:
+    """K3 alone, its plain version and torch.take at join_agg's shape: the
+    2^26 probe keys of the first resident t0 chunk into a D = 65536, K = 2
+    table (t1's 40000 rows padded with the sentinel 2^16 - 1)."""
+    import torch
+    from pg_strom_tpu_torch.exec.devcache import TCACHE, chunk_capacity
+    from pg_strom_tpu_torch.ops import mxu_lookup as ml
+    t = db.get("t0")
+    names = t.column_names
+    cc = next(iter(TCACHE.chunks_for(t, names, chunk_capacity(t.nrows))))
+    aid = cc.planes[names.index("aid")][0]
+    n = cc.nrows
+    D, K, sent = 1 << 16, 2, (1 << 16) - 1
+    idx = (aid.to(torch.int64) - 1).clamp(0, D - 1).to(torch.int32)
+    vals = torch.randperm(DIM_ROWS, device=aid.device,
+                          generator=torch.Generator(device=aid.device).manual_seed(7)
+                          ).to(torch.int32)
+    table = ml.encode_table_torch(
+        torch.cat([vals, torch.full((D - DIM_ROWS,), sent, dtype=torch.int32,
+                                    device=aid.device)]), D, K, sent)
+    k = ml.mxu_lookup_cuda(idx, table, n, sent)
+    p = ml.mxu_lookup_reference(idx, table, n, sent)
+    idx64 = idx[:n].to(torch.int64)
+    lib_out = torch.take(table, idx64)
+    torch.cuda.synchronize()
+    if not (torch.equal(k, p) and torch.equal(k, lib_out)):
+        raise AssertionError("K3 at the join_agg chunk differs from its "
+                             "plain version or torch.take")
+    p1 = _time(lambda: ml.mxu_lookup_reference(idx, table, n, sent), 3)
+    k1 = _time(lambda: ml.mxu_lookup_cuda(idx, table, n, sent), 20)
+    k2 = _time(lambda: ml.mxu_lookup_cuda(idx, table, n, sent), 20)
+    p2 = _time(lambda: ml.mxu_lookup_reference(idx, table, n, sent), 3)
+    conv = _time(lambda: idx[:n].to(torch.int64), 5)
+    lib = _time(lambda: torch.take(table, idx64), 20)
+    # device-to-device copy of the same 8 bytes per lookup, for scale
+    src = torch.empty(2 * n, dtype=torch.int32, device=aid.device)
+    dst = torch.empty_like(src)
+    cp = _time(lambda: dst.copy_(src), 10)
+    copy_bytes = 2 * src.numel() * 4
+    copy_rate = copy_bytes / (cp / 1e3)
+    del src, dst
+    b = _bound(4 * n + 4 * n + table.numel() * 4, n)
+    _log(f"K3 at the join_agg chunk ({n} lookups, D={D}, K={K}) [{gpu}]: "
+         f"kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch {p1:.4f} / {p2:.4f} "
+         f"ms, torch.take {lib:.4f} ms (+ {conv:.4f} ms int64 index "
+         f"conversion), bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+         f"{b['bound_bytes']:.0f} B at 3.35 TB/s; a device copy of "
+         f"{copy_bytes:.0f} B moves {copy_rate / 1e12:.3f} TB/s)")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": 0, **b,
+            "library_ms": lib, "convert_ms": conv,
+            "copy_tb_s": copy_rate / 1e12}
 
 
 # ---------------------------------------------------------------------------
@@ -920,10 +1264,24 @@ def _time_k4(db, gpu: str) -> dict:
     k1 = _time(lambda: pp.pallas_cuda(V, seg, 32, n, fc), 10)
     k2 = _time(lambda: pp.pallas_cuda(V, seg, 32, n, fc), 10)
     p2 = _time(lambda: pp.pallas_reduce_reference(V, seg, 32, n, fc), 1)
+    # one PyTorch call computing the same sums: index_add_ of the int64
+    # value matrix into G+1 rows (row G takes the dropped rows); the int64
+    # conversion is timed apart
+    import torch
+    conv = _time(lambda: V[:n].to(torch.int64), 3)
+    V64 = V[:n].to(torch.int64)
+    seg64 = seg[:n].to(torch.int64)
+    lib = _time(lambda: torch.zeros(33, S, dtype=torch.int64,
+                                    device=V.device).index_add_(0, seg64,
+                                                                V64), 10)
+    del V64
+    b = _bound(_tensor_bytes([V, seg]) + 32 * S * 12, n * S)
     _log(f"K4 at the agg_group value matrix ({n} rows, G=32, S={S}) "
          f"[{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch "
-         f"{p1:.4f} / {p2:.4f} ms")
-    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err}
+         f"{p1:.4f} / {p2:.4f} ms, index_add_ {lib:.4f} ms (+ {conv:.4f} ms "
+         f"int64 conversion), bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err, **b,
+            "library_ms": lib, "convert_ms": conv}
 
 
 # ---------------------------------------------------------------------------
@@ -991,6 +1349,91 @@ def phase_small(seed: int) -> None:
         _rows_equal(dev_rows, host_rows)
     _log(f"small t0 ({n} rows, NULLs and NaN): device path == host-exact "
          f"tier for {len(T0_SQL)} queries")
+    phase_small_joins(seed, n)
+
+
+SMALL_JOIN_SQL = {
+    # unique shuffled dimension: the K3 probe
+    "inner": ("select f.id, f.k, d.w from f join d on f.k = d.k "
+              "where f.x < 0.3", {}),
+    "left": ("select f.id, d.w from f left join d on f.k = d.k "
+             "where d.w > 0 or d.w is null", {}),
+    "full": ("select f.id, d.k from f full join d on f.k = d.k "
+             "and d.w < 500", {}),
+    "residual_on": ("select f.id, d.w from f left join d on f.k = d.k "
+                    "and d.w > f.y", {}),
+    "chained": ("select f.id, c.v from f join c on f.k = c.k "
+                "where f.x < 0.5", {}),
+    "nloops": ("select f.id, b.w from f join b on f.k = b.bk "
+               "where f.x < 0.05", {"join_build_hbm_mb": 1}),
+    "post_join_scan": ("select f.id, d.w from f join d on f.k = d.k "
+                       "where f.y + d.w > 100", {}),
+    "fused_agg": ("select f.k % 7, count(*), sum(d.w), avg(f.x) from f "
+                  "join d on f.k = d.k group by f.k % 7", {}),
+    "pregrouped_agg": ("select d.g, count(*), sum(f.x) from f "
+                       "join d on f.k = d.k group by d.g", {}),
+}
+
+
+def _small_join_db(seed: int, n: int):
+    import numpy as np
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.datastore import (Database, Table,
+                                              column_from_numpy as cn)
+    rng = np.random.default_rng(seed + 11)
+    db = Database()
+    db.create(Table.from_columns("f", {
+        "id": cn(T.INT4, np.arange(n, dtype=np.int32)),
+        "k": cn(T.INT4, rng.integers(0, 1200, n, dtype=np.int32),
+                rng.random(n) > 0.05),
+        "x": cn(T.FLOAT8, rng.random(n), rng.random(n) > 0.05),
+        "y": cn(T.INT4, rng.integers(-1000, 1000, n, dtype=np.int32))}))
+    db.create(Table.from_columns("d", {
+        "k": cn(T.INT4, rng.permutation(1000).astype(np.int32)),
+        "w": cn(T.INT4, rng.integers(-1000, 1000, 1000, dtype=np.int32)),
+        "g": cn(T.INT4, rng.integers(0, 10, 1000, dtype=np.int32))}))
+    db.create(Table.from_columns("c", {
+        "k": cn(T.INT4, np.repeat(np.arange(300, dtype=np.int32), 3)),
+        "v": cn(T.INT8, rng.integers(-(1 << 40), 1 << 40, 900))}))
+    nb = 60000
+    db.create(Table.from_columns("b", {
+        "bk": cn(T.INT4, rng.integers(0, 20000, nb, dtype=np.int32)),
+        "w": cn(T.INT8, np.arange(nb, dtype=np.int64))}))
+    return db
+
+
+def phase_small_joins(seed: int, n: int) -> None:
+    """Small join tables through the device path and the host-exact tier
+    (enabled=False): equal rows."""
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.ops import mxu_lookup as ml
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    db = _small_join_db(seed, n)
+    for name, (sql, ovr) in SMALL_JOIN_SQL.items():
+        k3 = ml.mxu_lookup_cuda.launches
+        with override(debug_force_offload=True, **ovr):
+            pq = plan_query(ast.parse(sql), db)
+            dev_rows = _sorted_all(pq.execute())
+        counts = dict(pq.perfmon.counts)
+        k3 = ml.mxu_lookup_cuda.launches - k3
+        with override(enabled=False, **ovr):
+            host_rows = _sorted_all(plan_query(ast.parse(sql), db).execute())
+        if not counts.get("device_chunks") or counts.get("recheck_chunks"):
+            raise AssertionError(f"small join {name}: perfmon {counts}")
+        if name in ("inner", "fused_agg", "pregrouped_agg") and k3 < 1:
+            raise AssertionError(f"small join {name}: K3 never launched")
+        if name == "nloops" and counts.get("nloops_passes", 0) < 2:
+            raise AssertionError(f"small join nloops: perfmon {counts}")
+        _rows_equal(dev_rows, host_rows)
+        _log(f"small join {name}: {len(dev_rows)} rows, device path == "
+             f"host-exact tier (K3 launches {k3}, perfmon {counts})")
+
+
+def _sorted_all(rows):
+    return sorted(rows, key=lambda r: tuple((v is None, v if v is not None
+                                             and v == v else 0)
+                                            for v in r))
 
 
 def _sorted(rows):
@@ -1036,7 +1479,7 @@ def main(argv=None) -> int:
     how = (f"nvcc {kc.build_seconds:.2f} s, one process per source"
            if kc.build_seconds is not None
            else "already built from these sources")
-    _log(f"kernel build (K1, K2, K4): {time.perf_counter() - t0:.2f} s "
+    _log(f"kernel build (K1, K2, K4, K3): {time.perf_counter() - t0:.2f} s "
          f"({how}) -> {os.path.relpath(kc.library_path())}")
     for line in (kc.build_log or "").splitlines():
         if "ptxas" in line or line.startswith("=="):
@@ -1044,13 +1487,17 @@ def main(argv=None) -> int:
 
     err = phase_kernels(args.seed, args.kernel_rows_log2)
     err = max(err, phase_kernels_k2k4(args.seed, args.kernel_rows_log2))
+    k3_err = phase_kernels_k3(args.seed, args.kernel_rows_log2)
     timing = phase_slice(args.seed, args.rows_log2, gpu)
     t0db = phase_testdb(args.seed, args.rows_log2, gpu)
     k4 = phase_k4(args.seed, args.k4_rows_log2, gpu)
     phase_small(args.seed)
     _log(f"total {time.perf_counter() - t_start:.1f} s [{gpu}]")
 
+    print(gpu, flush=True)
     chunk = t0db["chunk"]
+    joins = t0db["joins"]
+    cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{
         "name": "preagg_fused2 (K1)",
         "route": "cuda",
@@ -1058,8 +1505,7 @@ def main(argv=None) -> int:
         "replaces": "pg_strom_tpu/ops/preagg_fused2.py:625",
         "launches": timing["launches"],
         "max_abs_err": max(err, timing["chunk_err"]),
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
+        **{c: timing[c] for c in cols},
     }, {
         "name": "preagg_fused (K2)",
         "route": "cuda",
@@ -1067,8 +1513,15 @@ def main(argv=None) -> int:
         "replaces": "pg_strom_tpu/ops/preagg_fused.py:284",
         "launches": t0db["k2_launches"],
         "max_abs_err": max(err, chunk[32]["err"], chunk[1024]["err"]),
-        "ms": chunk[32]["ms"],
-        "plain_ms": chunk[32]["plain_ms"],
+        **{c: chunk[32][c] for c in cols},
+    }, {
+        "name": "mxu_lookup (K3)",
+        "route": "cuda",
+        "source": "pg_strom_tpu_torch/ops/cuda/mxu_lookup.cu",
+        "replaces": "pg_strom_tpu/ops/mxu_lookup.py:100",
+        "launches": joins["k3_launches"],
+        "max_abs_err": max(k3_err, joins["chunk"]["err"]),
+        **{c: joins["chunk"][c] for c in cols},
     }, {
         "name": "preagg_pallas (K4)",
         "route": "cuda",
@@ -1076,8 +1529,7 @@ def main(argv=None) -> int:
         "replaces": "pg_strom_tpu/ops/preagg_pallas.py:46",
         "launches": k4["launches"],
         "max_abs_err": max(err, k4["err"]),
-        "ms": k4["ms"],
-        "plain_ms": k4["plain_ms"],
+        **{c: k4[c] for c in cols},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

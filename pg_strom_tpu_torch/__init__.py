@@ -11,9 +11,11 @@ The ported path is the pre-aggregation of one table, grouped or not:
 -> either the v2 plan of `ops/preagg_fused2.derive_v2_plan` on the CUDA
 kernel K1, or the expression lowering (`expr/lower_torch.py`) and a
 strategy of `ops/preagg.build_preagg_fn` (column sums on K2 or K4,
-scatter, sort, ungrouped) -> host absorb, merge and finalize.  Plan routes
-whose executors are not ported yet raise NotImplementedError naming their
-ROADMAP item.
+scatter, sort, ungrouped) -> host absorb, merge and finalize.  Scans
+(`exec/scan_exec.py`), hash joins (`exec/join_exec.py`) and the fused
+join+aggregate (`exec/joinagg_exec.py`) run on the device too, the dense
+join probe on the CUDA kernel K3.  Plan routes whose executors are not
+ported yet raise NotImplementedError naming their ROADMAP item.
 
 The device is explicit (`config.device`, default "cuda"): with "cuda" and
 no GPU the port raises; "cpu" runs the kernels' plain PyTorch versions.

@@ -15,6 +15,10 @@ same columns.
     window) carry planes=None — the executor replays them host-exactly.
   - Tables that would not fit in the budget stream: each chunk uploads,
     runs and is freed, uncached.
+  - Auxiliary device state (join hash tables, pregrouped lookup tables)
+    shares the same LRU and byte budget through put_aux / get_aux, the
+    cross-query extension of the reference's DMA-hashtable-once pattern
+    (gpuhashjoin.c:4497-4555).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import dataclasses
 import threading
 import weakref
 from collections import OrderedDict
-from typing import Iterator, Optional, Sequence
+from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -95,13 +99,29 @@ class CachedChunk:
 
 @dataclasses.dataclass
 class _Entry:
-    chunks: list[CachedChunk]
+    table_name: str
+    kind: str                    # 'chunks' | 'aux'
+    chunks: Optional[list[CachedChunk]]
+    aux: Any
     nbytes: int
     col_refs: list               # weakrefs keeping eviction honest
     hits: int = 0
 
     def alive(self) -> bool:
         return all(r() is not None for r in self.col_refs)
+
+
+def _pytree_nbytes(tree: Any) -> int:
+    """Bytes of every tensor or ndarray leaf of a dict / list / tuple tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, np.ndarray):
+        return tree.nbytes
+    if isinstance(tree, dict):
+        return sum(_pytree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_pytree_nbytes(v) for v in tree)
+    return 0
 
 
 class DeviceChunkCache:
@@ -189,7 +209,8 @@ class DeviceChunkCache:
             yield cc
         with self._mu:
             self._evict_to_fit(nbytes)
-            self._lru[key] = _Entry(chunks=chunks, nbytes=nbytes,
+            self._lru[key] = _Entry(table_name=table.name, kind="chunks",
+                                    chunks=chunks, aux=None, nbytes=nbytes,
                                     col_refs=[weakref.ref(c) for c in cols])
 
     def _load(self, table: Table, names, start: int, stop: int, cap: int,
@@ -214,6 +235,45 @@ class DeviceChunkCache:
                             dev, pm)[0]
             cc.streamed = True
             yield cc
+
+    # -- auxiliary device state (join hash tables) ---------------------------
+
+    def get_aux(self, key: tuple, pm=None) -> Any:
+        with self._mu:
+            self._sweep()
+            ent = self._lru.get(("aux",) + key)
+            if ent is None:
+                return None
+            self._lru.move_to_end(("aux",) + key)
+            ent.hits += 1
+            self.hits += 1
+        if pm is not None:
+            pm.bump("tcache_hits")
+        return ent.aux
+
+    def put_aux(self, key: tuple, value: Any, table_name: str,
+                cols: Sequence = ()) -> None:
+        """Cache `value` (a tree of tensors) under `key` while every Column
+        of `cols` lives; counts against tcache_size_mb like chunk planes."""
+        if not (config.enabled and config.enable_tcache):
+            return
+        nbytes = _pytree_nbytes(value)
+        if nbytes > self.budget_bytes():
+            return
+        with self._mu:
+            self.misses += 1
+            self._evict_to_fit(nbytes)
+            self._lru[("aux",) + key] = _Entry(
+                table_name=table_name, kind="aux", chunks=None, aux=value,
+                nbytes=nbytes, col_refs=[weakref.ref(c) for c in cols])
+
+    def info_rows(self) -> list[dict]:
+        with self._mu:
+            self._sweep()
+            entries = list(self._lru.values())
+        return [{"table_name": e.table_name, "kind": e.kind,
+                 "nchunks": len(e.chunks) if e.chunks else 0,
+                 "nbytes": e.nbytes, "hits": e.hits} for e in entries]
 
 
 TCACHE = DeviceChunkCache()

@@ -809,6 +809,22 @@ def _live(cols: tuple, nrows) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=dev) < int(nrows)
 
 
+def pred_mask(lw: Lowerer, pred: Optional[Expr],
+              live: torch.Tensor) -> torch.Tensor:
+    """Rows of `live` where `pred` is TRUE (all of them for no pred)."""
+    if pred is None:
+        return live
+    v = lw.lower(pred, live)
+    return live & v.valid & v.data.to(torch.bool)
+
+
+def err_max(lw: Lowerer, live: torch.Tensor) -> torch.Tensor:
+    """The most severe error code raised on a live row (uint8 scalar)."""
+    if not live.shape[0]:
+        return torch.tensor(0, dtype=torch.uint8, device=live.device)
+    return torch.where(live, lw.err, torch.zeros_like(lw.err)).max()
+
+
 def build_qual_fn(pred: Expr, schema: Sequence[ColMeta]) -> Callable:
     """Return f(cols, nrows) -> (pass_mask bool[n], err uint8[n]).
 

@@ -14,6 +14,7 @@ gives way to its plain version.
   K1  preagg_fused2.cu  fused pre-aggregation over raw column planes
   K2  preagg_fused.cu   fused pre-aggregation over encoded lanes
   K4  preagg_pallas.cu  segmented column sums of a value matrix
+  K3  mxu_lookup.cu     table lookup out[i] = table[idx[i]]
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
-SOURCES = ("preagg_fused2.cu", "preagg_fused.cu", "preagg_pallas.cu")
+SOURCES = ("preagg_fused2.cu", "preagg_fused.cu", "preagg_pallas.cu",
+           "mxu_lookup.cu")
 # sm_90a: Hopper with its arch-specific features; --fmad=false keeps float32
 # arithmetic IEEE-identical to the plain PyTorch versions (no contraction
 # of a multiply and an add into one rounding); -Xptxas -v reports
@@ -126,6 +128,9 @@ def library() -> ctypes.CDLL:
             L.pgstrom_k4_launch.argtypes = [
                 c_ptr, c_ptr, c_ptr, c_ll, c_int, c_int, c_int, c_int,
                 c_ptr, c_ptr, c_int, c_int, c_int, ctypes.c_size_t, c_ptr]
+            L.pgstrom_k3_launch.restype = c_int
+            L.pgstrom_k3_launch.argtypes = [
+                c_ptr, c_ptr, c_int, c_int, c_ll, c_ptr, c_int, c_int, c_ptr]
             L.pgstrom_cuda_error_string.restype = ctypes.c_char_p
             L.pgstrom_cuda_error_string.argtypes = [c_int]
             _lib = L

@@ -32,6 +32,8 @@ from ..expr.eval_cpu import eval_expr_cpu
 from ..ops.preagg import AggInstance, lookup_agg
 from ..utils.perfmon import Perfmon
 from ..pgops import cmp_values
+from ..exec.join_exec import HashJoinExecutor
+from ..exec.scan_exec import ScanExecutor
 from ..sql import parser as ast
 from .binder import Scope, bind_expr, BindError
 from .cost import (
@@ -276,8 +278,6 @@ def plan_select(stmt: ast.SelectStmt, db: Database) -> PlannedQuery:
 
     if not rels:
         return _plan_table_less(stmt, db, perfmon)
-    if len(rels) > 1:
-        _unported("joins", "Joins and K3")
 
     def materialize_rel(alias, obj) -> Table:
         if isinstance(obj, PlannedQuery):
@@ -394,18 +394,88 @@ def plan_select(stmt: ast.SelectStmt, db: Database) -> PlannedQuery:
     # ---- execution closure -------------------------------------------------
     def run() -> list[tuple]:
         tables = {a: rename_table(materialize_rel(a, o), a) for a, o in rels}
-        cur = tables[rels[0][0]]
-        cur_pred = and_all(per_rel[rels[0][0]])
-        # leftover pseudo-constant quals force a materializing scan; a
-        # plain single-relation predicate stays in cur_pred and FUSES into
-        # the downstream aggregate kernel (no row-id materialization, no
-        # host subset, no re-upload)
-        leftover = and_all(post_join)
+        # bulk-load pipeline: single equi-join feeding aggregation fuses into
+        # one device pass per probe chunk (joined rows never materialize on
+        # the host — the pgstrom_bulkslot chain analog, pg_strom.h:317-329)
+        rows = None
+        if has_aggs and len(rels) == 2 and join_equis and not post_join \
+                and dec["agg"] and all(dec["join"].values()):
+            if config.distributed:
+                _unported("distributed join+aggregate", "Distributed")
+            rows = _try_fused_join_agg(tables, rels, per_rel, join_equis,
+                                       group_exprs, items, having,
+                                       order_specs, perfmon)
+        elif has_aggs and len(rels) >= 3 and join_equis and not post_join \
+                and not has_outer and dec["agg"] and all(dec["join"].values()) \
+                and _star_shape(rels, join_equis):
+            # the reference's N-way fused star join+agg (TpuStarJoinAgg)
+            _unported("star join+aggregate (TpuStarJoinAgg)", "Star joins")
+        if rows is not None:
+            if stmt.distinct:
+                rows = _dedupe_rows(rows)
+            if stmt.offset:
+                rows = rows[stmt.offset:]
+            if stmt.limit is not None:
+                rows = rows[:stmt.limit]
+            return rows
+        if has_outer:
+            if len(stmt.frm) != 1:
+                raise SqlError("outer joins cannot mix with comma joins")
+            cur = _run_outer_chain(tables, rels, stmt.joins, bound_ons,
+                                   perfmon, dec_join=dec["join"])
+            cur_pred = None
+            pending_equis = []
+            current_alias_set = {a for a, _ in rels}
+        else:
+            current_alias_set = {rels[0][0]}
+            cur = tables[rels[0][0]]
+            cur_pred = and_all(per_rel[rels[0][0]])
+            pending_equis = list(join_equis)
+        # left-deep join chain in FROM order
+        for alias, _ in (() if has_outer else rels[1:]):
+            keys_l, keys_r = [], []
+            rest = []
+            for cj in pending_equis:
+                a0 = cj.args[0].name.split(".", 1)[0]
+                a1 = cj.args[1].name.split(".", 1)[0]
+                if a0 in current_alias_set and a1 == alias:
+                    keys_l.append(cj.args[0])
+                    keys_r.append(cj.args[1])
+                elif a1 in current_alias_set and a0 == alias:
+                    keys_l.append(cj.args[1])
+                    keys_r.append(cj.args[0])
+                else:
+                    rest.append(cj)
+            pending_equis = rest
+            if not keys_l:
+                raise SqlError(f"cross join with {alias} is not supported")
+            right = tables[alias]
+            lp = {n: i for i, n in enumerate(cur.column_names)}
+            rp = {n: i for i, n in enumerate(right.column_names)}
+            jx = HashJoinExecutor(
+                cur, right,
+                [bind_columns(k, lp) for k in keys_l],
+                [bind_columns(k, rp) for k in keys_r],
+                out_probe_cols=cur.column_names,
+                out_build_cols=right.column_names,
+                probe_pred=bind_columns(cur_pred, lp) if cur_pred is not None else None,
+                build_pred=(bind_columns(and_all(per_rel[alias]), rp)
+                            if per_rel[alias] else None),
+                probe_alias=None, build_alias=None,  # names pre-qualified
+                perfmon=perfmon, offload=dec["join"].get(alias, True))
+            cur = jx.run()
+            cur_pred = None
+            current_alias_set.add(alias)
+        # leftover post-join quals force a materializing scan; a plain
+        # single-relation predicate stays in cur_pred and FUSES into the
+        # downstream aggregate kernel (no row-id materialization, no host
+        # subset, no re-upload)
+        leftover = and_all(post_join + pending_equis)
         if leftover is not None:
             pred = and_all([p for p in (cur_pred, leftover) if p is not None])
             lp = {n: i for i, n in enumerate(cur.column_names)}
-            idxs = _scan_row_indexes(cur, bind_columns(pred, lp), perfmon,
-                                     offload=dec["post_scan"])
+            idxs = ScanExecutor(cur, bind_columns(pred, lp), perfmon,
+                                offload=dec["post_scan"]).row_indexes()
             cur = _subset_table(cur, idxs)
             cur_pred = None
 
@@ -420,7 +490,8 @@ def plan_select(stmt: ast.SelectStmt, db: Database) -> PlannedQuery:
                 limit_k = stmt.limit + (stmt.offset or 0)
             rows = _run_plain(cur, cur_pred, items, order_specs, perfmon,
                               limit_k,
-                              offload=dec["scan"].get(rels[0][0], True))
+                              offload=dec["scan"].get(rels[0][0], True)
+                              if len(rels) == 1 else dec["post_scan"])
         if stmt.distinct:
             rows = _dedupe_rows(rows)   # stable: ORDER BY order preserved
         if stmt.offset:
@@ -563,6 +634,102 @@ def _plan_costs(rels, shells, sub_plans, per_rel, join_equis, has_outer,
     return decisions, node_costs
 
 
+def _run_outer_chain(tables, rels, joins, bound_ons, perfmon,
+                     dec_join=None) -> Table:
+    """FROM t0 {LEFT|RIGHT|FULL|INNER} JOIN tN ON ... processed in order.
+
+    ON-clause split per join (PostgreSQL semantics):
+      equi pairs (cur = new)     -> hash join keys
+      nullable-side-only quals   -> residual match condition (a failed ON
+                                    still emits the NULL-extended row)
+      preserved-build-side quals -> pushed as build_pred (gate matching only)
+      mixed / non-equi           -> residual
+    RIGHT is executed as LEFT with probe/build swapped."""
+    alias0 = rels[0][0]
+    cur = tables[alias0]
+    cur_aliases = {alias0}
+    for jc, ons in zip(joins, bound_ons):
+        alias = jc.table.alias or jc.table.name
+        right = tables[alias]
+        jt = jc.jointype
+        if jt == "cross":
+            raise SqlError("CROSS JOIN inside an outer-join chain is not supported")
+        equis_cur: list[Expr] = []
+        equis_new: list[Expr] = []
+        cur_only: list[Expr] = []
+        new_only: list[Expr] = []
+        residual: list[Expr] = []
+        for cj in ons:
+            rs = rels_of(cj)
+            if (len(rs) == 2 and isinstance(cj, FuncExpr)
+                    and cj.fname.startswith("=::")
+                    and isinstance(cj.args[0], ColumnRef)
+                    and isinstance(cj.args[1], ColumnRef)):
+                a0 = cj.args[0].name.split(".", 1)[0]
+                a1 = cj.args[1].name.split(".", 1)[0]
+                if a0 in cur_aliases and a1 == alias:
+                    equis_cur.append(cj.args[0])
+                    equis_new.append(cj.args[1])
+                    continue
+                if a1 in cur_aliases and a0 == alias:
+                    equis_cur.append(cj.args[1])
+                    equis_new.append(cj.args[0])
+                    continue
+            if rs and rs <= cur_aliases:
+                cur_only.append(cj)
+            elif rs and rs <= {alias}:
+                new_only.append(cj)
+            else:
+                residual.append(cj)
+        if not equis_cur:
+            raise SqlError(f"{jt.upper()} JOIN with {alias} requires an "
+                           "equality join condition")
+        probe_pred = build_pred = None
+        if jt == "right":
+            probe, build = right, cur
+            pk, bk = equis_new, equis_cur
+            build_pred = and_all(cur_only)
+            residual += new_only
+            jt_exec = "left"
+        elif jt == "left":
+            probe, build = cur, right
+            pk, bk = equis_cur, equis_new
+            build_pred = and_all(new_only)
+            residual += cur_only
+            jt_exec = "left"
+        elif jt == "full":
+            probe, build = cur, right
+            pk, bk = equis_cur, equis_new
+            residual += cur_only + new_only
+            jt_exec = "full"
+        else:  # inner JOIN ... ON written inside an outer chain
+            probe, build = cur, right
+            pk, bk = equis_cur, equis_new
+            probe_pred = and_all(cur_only)
+            build_pred = and_all(new_only)
+            jt_exec = "inner"
+        lp = {n: i for i, n in enumerate(probe.column_names)}
+        rp = {n: i for i, n in enumerate(build.column_names)}
+        jx = HashJoinExecutor(
+            probe, build,
+            [bind_columns(k, lp) for k in pk],
+            [bind_columns(k, rp) for k in bk],
+            out_probe_cols=probe.column_names,
+            out_build_cols=build.column_names,
+            probe_pred=(bind_columns(probe_pred, lp)
+                        if probe_pred is not None else None),
+            build_pred=(bind_columns(build_pred, rp)
+                        if build_pred is not None else None),
+            probe_alias=None, build_alias=None,
+            jointype=jt_exec,
+            residual=and_all(residual),   # executor binds to joined layout
+            perfmon=perfmon,
+            offload=True if dec_join is None else dec_join.get(alias, True))
+        cur = jx.run()
+        cur_aliases.add(alias)
+    return cur
+
+
 def _dedupe_rows(rows: list[tuple]) -> list[tuple]:
     from ..exec.hostexec import canon_group_key
     seen: set = set()
@@ -604,6 +771,46 @@ def _subset_table(tbl: Table, idxs: list[int]) -> Table:
                         nc._exact[newpos] = c._exact[old]
         cols[nm] = nc
     return Table.from_columns(tbl.name, cols)
+
+
+def _try_fused_join_agg(tables, rels, per_rel, join_equis, group_exprs,
+                        items, having, order_specs, perfmon):
+    """Fused probe-join-aggregate over a 2-relation query.  Returns finished
+    rows, or None when the shape/expressions aren't fused-eligible (the
+    caller then runs the generic join -> aggregate pipeline)."""
+    a0, a1 = rels[0][0], rels[1][0]
+    keys_l, keys_r = [], []
+    for cj in join_equis:
+        s0 = cj.args[0].name.split(".", 1)[0]
+        s1 = cj.args[1].name.split(".", 1)[0]
+        if s0 == a0 and s1 == a1:
+            keys_l.append(cj.args[0])
+            keys_r.append(cj.args[1])
+        elif s1 == a0 and s0 == a1:
+            keys_l.append(cj.args[1])
+            keys_r.append(cj.args[0])
+        else:
+            return None
+    if not keys_l:
+        return None
+    aggrefs = _collect_aggrefs(items, having)
+    insts = []
+    for ag in aggrefs:
+        d, fam = lookup_agg(ag.aggname, tuple(a.type for a in ag.args),
+                            star=ag.star)
+        insts.append(AggInstance(aggname=ag.aggname, family=fam,
+                                 slots=d.slots, args=tuple(ag.args),
+                                 distinct=ag.distinct))
+    from ..exec.joinagg_exec import JoinPreAggExecutor
+    ex = JoinPreAggExecutor(
+        tables[a0], tables[a1], keys_l, keys_r, group_exprs, insts,
+        probe_pred=and_all(per_rel[a0]) if per_rel[a0] else None,
+        build_pred=and_all(per_rel[a1]) if per_rel[a1] else None,
+        perfmon=perfmon)
+    if not ex.device_ok():
+        return None
+    raw = ex.run()
+    return _finish_agg(raw, group_exprs, aggrefs, items, having, order_specs)
 
 
 def _collect_aggrefs(items, having) -> list[Aggref]:
@@ -696,7 +903,7 @@ def _run_plain(cur: Table, pred, items, order_specs, perfmon,
         rows = _topk_rows(cur, bpred, bitems, borders, limit_k, perfmon)
         if rows is not None:
             return rows
-    idxs = _scan_row_indexes(cur, bpred, perfmon, offload=offload)
+    idxs = ScanExecutor(cur, bpred, perfmon, offload=offload).row_indexes()
     cols = list(cur.columns.values())
     # vectorized materialization for plain column projections (the common
     # SELECT cols ... shape): batch numpy gathers + tolist instead of a
@@ -828,29 +1035,6 @@ def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
     _unported("device ORDER BY ... LIMIT (top-k)", "Sort")
 
 
-def _scan_row_indexes(tbl: Table, pred, perfmon, offload: bool = True):
-    """Global row indexes of `tbl` rows passing `pred` (ScanExecutor's
-    contract).  The device filter is not ported: a scan the reference
-    would offload raises; the host tier evaluates the qual exactly."""
-    import numpy as np
-    if tbl.nrows == 0:
-        return np.empty(0, np.int64)
-    if pred is None:
-        return np.arange(tbl.nrows, dtype=np.int64)
-    if (config.enabled and config.enable_tpuscan and offload
-            and device_expression_supported(pred)):
-        _unported("device scan", "Scan and filter")
-    names = tbl.column_names
-    out = []
-    for chunk in tbl.chunks():
-        cols = [chunk.columns[n] for n in names]
-        with perfmon.timer("cpu_fallback"):
-            for i in range(chunk.nrows):
-                if eval_expr_cpu(pred, lambda s: cols[s].get(i)) is True:
-                    out.append(chunk.start + i)
-    return np.asarray(out, dtype=np.int64)
-
-
 def _order_and_strip(rows: list[tuple], orders) -> list[tuple]:
     if orders:
         specs = [(i, desc, nf) for i, (_, desc, nf) in enumerate(orders)]
@@ -964,8 +1148,8 @@ def _cmp_sort_rows(rows: list, specs: list, getter) -> list:
 def _kernel_text(obj, alias: str, dev_quals: list[Expr]) -> str:
     """Lowered device kernel dump (pg_strom.show_device_kernel analog,
     main.c:399-439).  The reference prints the traced jaxpr of the scan
-    qual; the port's scan lowering is not written yet."""
-    return "(unavailable: device scan not ported yet)"
+    qual; the port evaluates the qual eagerly and has no traced program."""
+    return "(unavailable: the port evaluates the qual eagerly)"
 
 
 def _plan_table_less(stmt, db, perfmon) -> PlannedQuery:
@@ -1011,6 +1195,27 @@ def _plan_table_less(stmt, db, perfmon) -> PlannedQuery:
                         run, node, perfmon)
 
 
+def _star_shape(rels, join_equis) -> bool:
+    """True when every equi clause keys a later-listed relation by exactly
+    one earlier relation (classic star AND snowflake chains, round 3) —
+    the fused N-way device chain shape (exec/starjoin_exec.py)."""
+    if len(rels) < 3 or not join_equis:
+        return False
+    order = [a for a, _ in rels]
+    pos = {a: i for i, a in enumerate(order)}
+    srcs: dict[str, set] = {a: set() for a in order[1:]}
+    for cj in join_equis:
+        s0 = cj.args[0].name.split(".", 1)[0]
+        s1 = cj.args[1].name.split(".", 1)[0]
+        if s0 == s1 or s0 not in pos or s1 not in pos:
+            return False
+        inner, outer = (s0, s1) if pos[s0] > pos[s1] else (s1, s0)
+        if inner == order[0]:
+            return False
+        srcs[inner].add(outer)
+    return all(len(s) == 1 for s in srcs.values())
+
+
 def _build_plan_tree(rels, per_rel, join_equis, post_join, has_aggs,
                      group_exprs, items, order_specs, stmt,
                      sub_plans, dec=None, node_costs=None) -> PlanNode:
@@ -1039,6 +1244,31 @@ def _build_plan_tree(rels, per_rel, join_equis, post_join, has_aggs,
         if dev and config.show_device_kernel and kind == "TpuScan":
             d["Device Kernel"] = _kernel_text(obj, alias, dev)
         return PlanNode(kind, d, [], cost=node_costs["scan"].get(alias))
+
+    star = (has_aggs and not post_join and dec["agg"]
+            and all(dec["join"].values()) and dec["join"]
+            and _star_shape(rels, join_equis)
+            and config.enabled and config.enable_tpuhashjoin)
+    if star:
+        # one fused N-way device node (the multi-rel GpuHashJoin+GpuPreAgg
+        # merge, gpuhashjoin.c:789-835): fact chunk probes every dimension
+        # and aggregates in a single program
+        d = {"Hash Cond": " AND ".join(fmt_expr(k) for k in join_equis)}
+        if group_exprs:
+            d["Group Key"] = ", ".join(fmt_expr(g) for g in group_exprs)
+        d["output"] = ", ".join(fmt_expr(e) for _, e in items)
+        node = PlanNode("TpuStarJoinAgg", d,
+                        [scan_node(a, o) for a, o in rels],
+                        cost=node_costs["agg"])
+        if order_specs:
+            d2 = {"Sort Key": ", ".join(
+                fmt_expr(oe) + (" DESC" if desc else "")
+                for oe, desc, _ in order_specs)}
+            node = PlanNode("Sort", d2, [node], cost=node_costs["final"])
+        if stmt.limit is not None:
+            node = PlanNode("Limit", {"Count": str(stmt.limit)}, [node],
+                            cost=node_costs["final"])
+        return node
 
     node = scan_node(*rels[0])
     for alias, obj in rels[1:]:

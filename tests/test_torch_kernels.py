@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: K1 (pg_strom_tpu_torch/ops/cuda/preagg_fused2.cu), K2
-(preagg_fused.cu) and K4 (preagg_pallas.cu).
+(preagg_fused.cu), K3 (mxu_lookup.cu) and K4 (preagg_pallas.cu).
 
 Needs an NVIDIA GPU and skips without one.  It imports no JAX, so it runs
 on a machine that has only PyTorch and the CUDA toolkit (tests/conftest.py
@@ -68,3 +68,11 @@ def test_k4_matches_plain_version(cuda_device, name, G):
     err, _ = cs._k4_compare(name, keys, aggs, vals, mask, seg, G, n - 37,
                             dense)
     assert err == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,K", cs.K3_CASES)
+def test_k3_matches_plain_version(cuda_device, D, K):
+    """K3 (ops/cuda/mxu_lookup.cu): bit-equal, edge and padding slots and
+    out-of-range indexes included."""
+    assert cs.k3_compare(np.random.default_rng(D * 8 + K), D, K, 1 << 16) == 0

@@ -160,13 +160,14 @@ def test_copied_host_surface_matches_reference(dbs, sql):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT a.key, count(*) FROM t a JOIN t b ON a.key = b.key GROUP BY 1",
+    "SELECT count(*) FROM t a, t b, t c WHERE a.key = b.key "
+    "AND a.key = c.key",
     "SELECT key, rank() OVER (ORDER BY key) FROM t",
     "SELECT key FROM t ORDER BY key LIMIT 3",
 ])
 def test_unported_routes_raise_not_implemented(dbs, sql):
     _, pdb = dbs
-    with _forced({}):
+    with _forced({"debug_force_offload": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             P.execute(sql, pdb)
 
@@ -212,3 +213,86 @@ def test_testdb_query_matches_reference(testdbs, name):
     assert got.formatted(-3) == want.formatted(-3)
     assert counts.get("unported_host_exact", 0) == 0, counts
     assert counts.get("device_chunks", 0) >= 1, counts
+
+
+# ---------------------------------------------------------------------------
+# joins and device scans: the t0..t5 star schema (models/testdb.py)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _both(ovr):
+    """Both packages on the device plan (debug_force_offload), the
+    reference's grouped plans on K2 like the port's."""
+    with R.override(debug_force_offload=True, force_fused_preagg_cpu=True,
+                    **ovr), \
+            P.override(device="cpu", debug_force_offload=True, **ovr):
+        yield
+
+
+JOIN_QUERIES = {
+    "join_agg": "select count(*), sum(t0.x) from t0 "
+                "join t1 on t0.aid = t1.aid where t0.x < 50.0",
+    "star_group": "select t1.aid % 40, count(*), sum(t0.x) from t0 "
+                  "join t1 on t0.aid = t1.aid group by t1.aid % 40 "
+                  "order by t1.aid % 40",
+    "pairwise_rows": "select t0.id, t5.eid, t5.a from t0 join t5 "
+                     "on t0.eid = t5.eid where t0.x < 3.0 order by t0.id",
+    "left_where": "select t0.id, t5.eid, t5.a from t0 left join t5 "
+                  "on t0.eid = t5.eid where t5.a > 50.0 or t5.a is null "
+                  "order by t0.id",
+    "right_where": "select t0.id, t5.eid from t0 right join t5 "
+                   "on t0.eid = t5.eid and t0.x < 10.0 "
+                   "where t5.b < 30.0 order by t5.eid, t0.id",
+    "full_where": "select t0.id, t5.eid from t0 full join t5 "
+                  "on t0.eid = t5.eid and t5.a < 20.0 "
+                  "where t0.id is null or t0.id % 7 = 0 "
+                  "order by t5.eid, t0.id",
+    "three_way_rows": "select t0.id, t1.aid, t2.bid from t0 "
+                      "join t1 on t0.aid = t1.aid join t2 on t0.bid = t2.bid "
+                      "where t0.y < 2.0 order by t0.id",
+    "device_scan": "select id, cat, x from t0 where x < 5.0 and y > 50.0 "
+                   "order by id",
+}
+
+
+@pytest.mark.parametrize("name", list(JOIN_QUERIES))
+def test_join_query_matches_reference(testdbs, name):
+    rdb, pdb = testdbs
+    sql = JOIN_QUERIES[name]
+    with _both({"chunk_rows": 1 << 11}):
+        want = r_execute(sql, rdb)
+        got, counts = _port_run(sql, pdb)
+    assert got.formatted(-3) == want.formatted(-3)
+    assert len(got.rows) > 0
+    assert counts.get("unported_host_exact", 0) == 0, counts
+    assert counts.get("recheck_chunks", 0) == 0, counts
+    assert counts.get("device_chunks", 0) >= 2, counts
+
+
+@pytest.mark.parametrize("sql", [
+    JOIN_QUERIES["join_agg"],
+    JOIN_QUERIES["left_where"],
+    "select count(*), sum(t0.x), sum(t0.y) from t0, t1, t2, t3 "
+    "where t0.aid = t1.aid and t0.bid = t2.bid and t0.cid = t3.cid",
+])
+def test_join_explain_matches_reference(testdbs, sql):
+    rdb, pdb = testdbs
+    with _both({}):
+        want = r_execute("EXPLAIN " + sql, rdb)
+        got = P.execute("EXPLAIN " + sql, pdb)
+    assert got.formatted(-3) == want.formatted(-3)
+
+
+def test_star4way_raises_star_joins(testdbs):
+    _, pdb = testdbs
+    from pg_strom_tpu.models.testdb import BENCH_QUERIES
+    with _both({}):
+        with pytest.raises(NotImplementedError, match="Star joins"):
+            P.execute(BENCH_QUERIES["star4way"], pdb)
+
+
+def test_distributed_join_raises(testdbs):
+    _, pdb = testdbs
+    with _both({"distributed": True}):
+        with pytest.raises(NotImplementedError, match="Distributed"):
+            P.execute(JOIN_QUERIES["join_agg"], pdb)
