@@ -9,16 +9,20 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
 1. require a CUDA device; print the card's name and power limit
    (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
 2. build the kernel library (K1 ops/cuda/preagg_fused2.cu, K2
-   preagg_fused.cu, K4 preagg_pallas.cu, K3 mxu_lookup.cu; one nvcc per
-   source, in parallel, sm_90a) and print the build time and the ptxas
-   reports;
+   preagg_fused.cu, both on the accumulation core onehot_accum.cuh; K4
+   preagg_pallas.cu, K3 mxu_lookup.cu; one nvcc per source, in parallel,
+   sm_90a), print the build time and the ptxas reports, and the atomic
+   instructions each kernel compiled to (cuobjdump -sass);
 3. hold each kernel against its plain PyTorch version on the card, at
-   2^20 rows with nrows = 2^20 - 37: K1 over KERNEL_CASES, K2 over
-   K2_CASES (dense text key with float8 blocks, hashed int4 keys,
-   int8/timestamp keys, float4 with NaN/inf/NULL, corr/covar, G = 2048
-   with column tiling, an all-NULL group), K4 over two of those value
-   matrices at G = 32 and 2048: `ints` bit-equal and the same host-replay
-   decision;
+   2^20 rows with nrows = 2^20 - 37: K1 over KERNEL_CASES and
+   KERNEL_EDGE_CASES (G = 8, 128, 256), K2 over K2_CASES (dense text key
+   with float8 blocks, hashed int4 keys, int8/timestamp keys, float4 with
+   NaN/inf/NULL, corr/covar, G = 2048 with column tiling, an all-NULL
+   group) and K2_EDGE_CASES (G = 40, 128, 256, corr's K = 114 at G = 32
+   and 2048); the exactness windows (2^24 + 3 rows in one bucket at digit
+   255 on one and two blocks: past the 2^23-row s32 flush of one block);
+   K4 over two of those value matrices at G = 32 and 2048: `ints`
+   bit-equal and the same host-replay decision;
 3c. K3 against its plain version: 2^20 lookups at D in {100, 2048, 40960,
    65536} and K in {1, 2, 4}, with the edge, padding and out-of-range
    indexes: bit-equal;
@@ -26,14 +30,14 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    rows: two 2^26-row chunks, int4 key in 0..29, float4 x with 5% NULL,
    int8 y in [0, 2^40) with 5% NULL), then
    SELECT key, sum(x), count(x), sum(y) FROM t WHERE x > 0.25 GROUP BY key
-   through the planner: every chunk on K1, count and sum(y) exact against
-   numpy int64, sum(x) to rel 1e-5;
+   through the planner: every chunk on K1, count and sum(y) exact against numpy int64, sum(x) to rel 1e-5; K1 launches
+   counted over the cold and the five warm runs;
 4b. general grouped aggregation: t0 of models/testdb.py at 2^27 rows
    (tcache_size_mb=32768) and its queries agg_group, rollup, filter and
    agg_nogrp through the planner: every chunk on the device, none
    replayed, K2 launched (agg_group cold at G = 1024 and warm at G = 32,
-   rollup on its first rung), counts exact and float8 sums / averages to
-   rel 1e-9 against numpy;
+   rollup on its first rung), counts exact
+   and float8 sums / averages to rel 1e-9 against numpy;
 4d. joins in 4b's database: the dimensions t1..t4 (int4 keys 1..40000)
    and t6 (the same keys in a seeded random order), then join_agg,
    star_group and t0 x t6 cold and warm: every probe chunk on the
@@ -49,9 +53,10 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    path and the host-exact tier: equal rows;
 6. timings (cold and warm queries, each kernel alone, its plain version,
    its bound and, where one exists, the single PyTorch call computing
-   the same function, at the main path's shapes), each beside the card's
-   name and power limit; then the card line, the kernels' JSON line and,
-   last, the `ok` line.
+   the same function, at the main path's shapes; K1 at the flagship chunk
+   and K2 at the agg_group chunk for G in K2_TIMED_G, each with its launch
+   plan), each beside the card's name and power limit; then the card line,
+   the kernels' JSON line and, last, the `ok` line.
 """
 
 from __future__ import annotations
@@ -68,6 +73,37 @@ import time
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _log_sass_atomics(so: str) -> None:
+    """The atomic instructions each kernel of the library compiled to
+    (cuobjdump -sass): a 64-bit or float shared-memory add that is a
+    compare-and-swap loop shows as ATOMS.CAS / ATOMS.CAST.SPIN, a native
+    one as ATOMS.ADD."""
+    import collections
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        _log("SASS atomics: cuobjdump not found")
+        return
+    r = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                       timeout=300)
+    fn, found = None, collections.OrderedDict()
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            found.setdefault(fn, collections.Counter())
+            continue
+        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9_.]+)", line)
+        if m and fn is not None:
+            found[fn][m.group(1)] += 1
+    for fn, ops in found.items():
+        short = next((k for k in ("k1_kernel", "k2_kernel", "k3_kernel",
+                                  "k4_kernel") if k in fn), fn)
+        _log(f"SASS atomics {short}: "
+             f"{dict(sorted(ops.items())) if ops else 'none'}")
 
 
 def _gpu_line() -> str:
@@ -132,10 +168,11 @@ def _case_table(name: str, rng, n: int):
                     nulls(0.1))})
     x = ((rng.random(n, dtype=np.float32) - np.float32(0.3))
          * np.float32(10.0)).astype(np.float32)
-    if name == "nan_or_not_isnull":
+    if name in ("nan_or_not_isnull", "g8_nan"):
         x[rng.random(n) < 0.01] = np.float32("nan")
+    lo, hi = KEY_SPAN.get(name, (5, 21))
     cols = {
-        "k": cn(T.INT4, rng.integers(5, 21, n, dtype=np.int32), nulls(0.1)),
+        "k": cn(T.INT4, rng.integers(lo, hi, n, dtype=np.int32), nulls(0.1)),
         "x": cn(T.FLOAT4, x, nulls(0.15)),
         "z": cn(T.INT4, rng.integers(-5000, 5000, n, dtype=np.int32),
                 nulls(0.05)),
@@ -166,7 +203,7 @@ def _case_query(name: str, c):
                                                      value=0.25)))
         return pred, [c["k"]], [_agg("sum", c["x"]), _agg("count", c["x"]),
                                 _agg("sum", c["y"])]
-    if name == "all_kinds":
+    if name == "all_kinds" or name in KEY_SPAN:
         return None, [c["k"]], [
             _agg("sum", c["z"]), _agg("avg", c["z"]), _agg("stddev", c["z"]),
             _agg("stddev", c["zb"]), _agg("count", None),
@@ -198,6 +235,11 @@ def _case_query(name: str, c):
 KERNEL_CASES = ("flagship", "flagship_int8_off", "all_kinds",
                 "wide_negative_int8", "int8_single_limb", "nan_or_not_isnull",
                 "wide_g", "in_list_or_chain")
+# K1 at the edges of its launch plan: all_kinds' aggregates over key spans
+# that give G = 8 (not a multiple of 16, NaN in the float shadow), 128 and
+# 256
+KEY_SPAN = {"g8_nan": (-3, 3), "g128": (0, 100), "g256": (-60, 150)}
+KERNEL_EDGE_CASES = tuple(KEY_SPAN)
 
 
 def _device_cols(table, dev):
@@ -207,14 +249,14 @@ def _device_cols(table, dev):
                  for c in table.columns.values())
 
 
-def _run_both(plan, kpred, cols, nrows):
+def _run_both(plan, kpred, cols, nrows, grid=None):
     """(kernel ints, shadow), (plain ints, shadow) on the same planes."""
     from pg_strom_tpu_torch.ops.preagg_fused2 import (
         _kernel_planes, fused2_cuda, fused2_reference)
     scal = {"i": plan.scal_i, "u": plan.scal_u, "f4sc": plan.f4sc,
             "f4e": plan.f4e}
     planes = _kernel_planes(plan.sig, cols)
-    k = fused2_cuda(plan.sig, planes, nrows, scal, plan.G, kpred)
+    k = fused2_cuda(plan.sig, planes, nrows, scal, plan.G, kpred, grid=grid)
     p = fused2_reference(plan.sig, planes, nrows, scal, plan.G, kpred)
     return k, p, planes, scal
 
@@ -228,57 +270,97 @@ def _overflow(plan, shadow) -> bool:
     return mxu_overflow({"mxu_fsums": fs}, plan.recipes)
 
 
-def _compare(plan, kpred, cols, nrows) -> int:
+def _compare(plan, kpred, cols, nrows, grid=None) -> int:
     """max |kernel - plain| over ints (0 required) after checking the
     host-replay decision; raises on disagreement."""
     import torch
-    (ki, ks), (pi, ps), _, _ = _run_both(plan, kpred, cols, nrows)
+    (ki, ks), (pi, ps), _, _ = _run_both(plan, kpred, cols, nrows, grid)
     torch.cuda.synchronize()
     err = int((ki - pi).abs().max().item()) if ki.numel() else 0
     if not torch.equal(ki, pi):
-        raise AssertionError(f"K1 ints differ from the plain version "
-                             f"(max abs diff {err})")
+        raise AssertionError(f"K1 ints differ from the plain version (max "
+                             f"abs diff {err})")
     if _overflow(plan, ks) != _overflow(plan, ps):
         raise AssertionError("K1 and the plain version disagree on host "
                              "replay")
     return err
 
 
-def phase_kernels(seed: int, log2n: int) -> int:
-    import numpy as np
-    import torch
+def _k1_plan(t, name, pred, groups, aggs):
     from pg_strom_tpu_torch import override
     from pg_strom_tpu_torch.datastore import column_stats
     from pg_strom_tpu_torch.expr.lower_torch import schema_from_chunk_columns
-    from pg_strom_tpu_torch.ops.preagg_fused2 import (derive_v2_plan,
-                                                       lower_program)
+    from pg_strom_tpu_torch.ops.preagg_fused2 import derive_v2_plan
+    cols_host = [t.columns[nm] for nm in t.column_names]
+    for col in cols_host:
+        column_stats(col)
+    schema = schema_from_chunk_columns(t.column_names, cols_host)
+    with override(use_preagg_int8=(name != "flagship_int8_off")):
+        plan = derive_v2_plan(cols_host, schema, groups, aggs, pred,
+                              max_g=4096)
+    if plan is None:
+        raise AssertionError(f"case {name}: no v2 plan")
+    return plan
+
+
+def phase_kernels(seed: int, log2n: int) -> int:
+    import numpy as np
+    import torch
+    from pg_strom_tpu_torch.ops.launch_plan import plan_launch
+    from pg_strom_tpu_torch.ops.preagg_fused2 import lower_program
     N = 1 << log2n
     nrows = N - 37
     dev = torch.device("cuda")
     worst = 0
-    for i, name in enumerate(KERNEL_CASES):
+    for i, name in enumerate(KERNEL_CASES + KERNEL_EDGE_CASES):
         rng = np.random.default_rng(seed * 1000 + i)
         t = _case_table(name, rng, N)
-        c = _cols(t)
-        pred, groups, aggs = _case_query(name, c)
-        cols_host = [t.columns[nm] for nm in t.column_names]
-        for col in cols_host:
-            column_stats(col)
-        schema = schema_from_chunk_columns(t.column_names, cols_host)
-        with override(use_preagg_int8=(name != "flagship_int8_off")):
-            plan = derive_v2_plan(cols_host, schema, groups, aggs, pred,
-                                  max_g=4096)
-        if plan is None:
-            raise AssertionError(f"case {name}: no v2 plan")
+        pred, groups, aggs = _case_query(name, _cols(t))
+        plan = _k1_plan(t, name, pred, groups, aggs)
         prog = lower_program(plan.sig, pred)
-        err = _compare(plan, pred, _device_cols(t, dev), nrows)
-        worst = max(worst, err)
+        n_sh = len(plan.sig.shadow_map)
+        cols = _device_cols(t, dev)
+        worst = max(worst, _compare(plan, pred, cols, nrows))
+        lp = plan_launch(plan.G, plan.sig.ncols, n_sh, 0)
         _log(f"kernel case {name}: G={plan.G} K={plan.sig.ncols} "
              f"ops={len(prog.ops)} pred_ops={len(prog.pred)} "
              f"i8={plan.sig.i8} shadow={bool(plan.sig.shadow_map)} "
-             f"ints bit-equal to the plain version")
-        del t
+             f"block={lp.block} column_tiles={lp.ntiles} smem~{lp.smem} B: "
+             "ints bit-equal to the plain version")
+        del t, cols
         torch.cuda.empty_cache()
+    worst = max(worst, k1_exact_window(dev, log2n))
+    return worst
+
+
+def _exact_window_rows(log2n: int) -> int:
+    """Rows of the exactness-window cases: past the s32 flush of one
+    block (2^23 rows) at full size."""
+    return (1 << 24) + 3 if log2n >= 20 else (1 << log2n) + 3
+
+
+def k1_exact_window(dev, log2n: int) -> int:
+    """K1 with every row in one bucket and u32 limbs of 0xFFFFFFFF (digit
+    255) on a grid of 1 and 2 blocks: at full size one block sums more
+    rows than an s32 cell holds (2^23) and must flush it."""
+    import numpy as np
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.datastore import Table, column_from_numpy as cn
+    n = _exact_window_rows(log2n)
+    z = np.full(n, (1 << 31) - 1, np.int32)
+    z[0] = -(1 << 31)                       # v - min = 2^32 - 1 elsewhere
+    t = Table.from_columns("t", {"k": cn(T.INT4, np.full(n, 7, np.int32)),
+                                 "z": cn(T.INT4, z)})
+    c = _cols(t)
+    aggs = [_agg("sum", c["z"]), _agg("count", None)]
+    plan = _k1_plan(t, "exact_window", None, [c["k"]], aggs)
+    cols = _device_cols(t, dev)
+    worst = 0
+    for grid in (1, 2):
+        worst = max(worst, _compare(plan, None, cols, n, grid))
+    _log(f"kernel case exact_window: {n} rows in one bucket, digits 255, "
+         f"G={plan.G} K={plan.sig.ncols}, grids 1 and 2: ints bit-equal to "
+         "the plain version")
     return worst
 
 
@@ -289,6 +371,15 @@ def phase_kernels(seed: int, log2n: int) -> int:
 K2_CASES = ("agg_group", "two_hashed_int4", "int8_timestamp_keys",
             "float4_nan_inf_null", "corr_covar", "g2048_tiling",
             "all_null_group")
+# K2 at the edges of its launch plan: (name, K2_CASES data, G).  G = 40 is
+# no multiple of 16 (NaN and inf in the shadows), 128 is star_group's G,
+# corr's K = 114 fits one column tile at G = 32 and takes column tiles at
+# G = 2048
+K2_EDGE_CASES = (("g40_nan_inf", "float4_nan_inf_null", 40),
+                 ("g128", "two_hashed_int4", 128),
+                 ("g256", "two_hashed_int4", 256),
+                 ("g32_corr", "corr_covar", 32),
+                 ("g2048_corr_tiles", "corr_covar", 2048))
 
 
 def _dval(t, data, valid, dev):
@@ -307,9 +398,20 @@ def _inst(name, *types):
                                   for i, t in enumerate(types)))
 
 
-def _k2_case(name: str, rng, N: int, dev):
+def _k2_case(name: str, rng, N: int, dev, G_to=None):
     """(keys, aggs, arg vals, mask, seg ids, G, dense) of one K2 case:
-    DVals on the card, bucket ids as the strategy computes them."""
+    DVals on the card, bucket ids as the strategy computes them; `G_to`
+    folds the buckets into G_to of them (seg % G_to)."""
+    import torch
+    case = _k2_case_at(name, rng, N, dev)
+    if G_to is None:
+        return case
+    keys, aggs, vals, mask, seg, G, dense = case
+    seg = torch.where(seg < G, seg % G_to, torch.full_like(seg, G_to))
+    return keys, aggs, vals, mask, seg, G_to, dense
+
+
+def _k2_case_at(name: str, rng, N: int, dev):
     import numpy as np
     import torch
     from pg_strom_tpu_torch import T
@@ -377,7 +479,8 @@ def _k2_case(name: str, rng, N: int, dev):
     return keys, aggs, vals, mask, seg, G, False
 
 
-def _k2_compare(name, keys, aggs, vals, mask, seg, G, n, dense):
+def _k2_compare(name, keys, aggs, vals, mask, seg, G, n, dense,
+                grid=None):
     """(max |kernel - plain| over ints, plan, lanes) after requiring
     bit-equal ints and the same replay decision."""
     import torch
@@ -393,7 +496,7 @@ def _k2_compare(name, keys, aggs, vals, mask, seg, G, n, dense):
     sc = torch.stack(scales).float() if scales else torch.zeros(
         1, device=mask.device)
     seg = seg.to(torch.int32).contiguous()
-    ki, ks = pf.fused_cuda(plan, seg, inputs, sc, G, n)
+    ki, ks = pf.fused_cuda(plan, seg, inputs, sc, G, n, grid=grid)
     ri, rs = pf.fused_reference(plan, seg, inputs, sc, G, n)
     torch.cuda.synchronize()
     err = int((ki - ri).abs().max().item())
@@ -436,21 +539,31 @@ def _k4_compare(name, keys, aggs, vals, mask, seg, G, n, dense):
     return err, V.shape[1]
 
 
+def _k2_shadows(plan) -> int:
+    return sum(op[0] in ("fabs", "f32") for op in plan.ops)
+
+
 def phase_kernels_k2k4(seed: int, log2n: int) -> int:
     import numpy as np
     import torch
+    from pg_strom_tpu_torch.ops.launch_plan import plan_launch
     N = 1 << log2n
     n = N - 37
     dev = torch.device("cuda")
     worst = 0
-    for i, name in enumerate(K2_CASES):
-        case = _k2_case(name, np.random.default_rng(seed * 1000 + 100 + i),
-                        N, dev)
+    cases = [(nm, nm, None) for nm in K2_CASES] + list(K2_EDGE_CASES)
+    for i, (name, data, G_to) in enumerate(cases):
+        case = _k2_case(data, np.random.default_rng(seed * 1000 + 100 + i),
+                        N, dev, G_to)
+        G = case[5]
         err, plan, _, replay = _k2_compare(name, *case[:6], n, case[6])
         worst = max(worst, err)
-        _log(f"K2 case {name}: G={case[5]} K={plan.ncols} "
-             f"inputs={plan.n_inputs} replay={replay} ints bit-equal to the "
-             f"plain version")
+        lp = plan_launch(G, plan.ncols, _k2_shadows(plan), 0)
+        _log(f"K2 case {name}: G={G} K={plan.ncols} inputs={plan.n_inputs} "
+             f"block={lp.block} column_tiles={lp.ntiles} smem~{lp.smem} B "
+             f"replay={replay} ints bit-equal to the plain version")
+        del case
+    worst = max(worst, k2_exact_window(dev, log2n))
     for name in ("agg_group", "two_hashed_int4"):
         keys, aggs, vals, mask, seg, G, dense = _k2_case(
             name, np.random.default_rng(seed + 7), N, dev)
@@ -461,6 +574,32 @@ def phase_kernels_k2k4(seed: int, log2n: int) -> int:
             _log(f"K4 case {name}: G={g} S={S} ints bit-equal to the plain "
                  f"version")
     torch.cuda.empty_cache()
+    return worst
+
+
+def k2_exact_window(dev, log2n: int) -> int:
+    """K2 with every row in one bucket of G = 32: a hashed int4 key of
+    2^31 - 1 (key word 0xFFFFFFFF) and sum(int8) of -1 (limb words
+    0xFFFFFFFF and 0x7FFFFFFF), digits 255, on a grid of 1 and 2 blocks
+    (see k1_exact_window)."""
+    import numpy as np
+    import torch
+    from pg_strom_tpu_torch import T
+    n = _exact_window_rows(log2n)
+    ones = np.ones(n, np.bool_)
+    keys = [_dval(T.INT4, np.full(n, (1 << 31) - 1, np.int32), ones, dev)]
+    y = _dval(T.INT8, np.full(n, -1, np.int64), ones, dev)
+    aggs, vals = [_inst("sum", T.INT8), _inst("count", T.INT8)], [[y], [y]]
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    seg = torch.full((n,), 3, dtype=torch.int32, device=dev)
+    worst = 0
+    for grid in (1, 2):
+        err, plan, _, _ = _k2_compare("exact_window", keys, aggs, vals, mask,
+                                      seg, 32, n, False, grid)
+        worst = max(worst, err)
+    _log(f"K2 case exact_window: {n} rows in one bucket, digits 255, G=32 "
+         f"K={plan.ncols}, grids 1 and 2: ints bit-equal to the plain "
+         "version")
     return worst
 
 
@@ -584,11 +723,10 @@ def phase_slice(seed: int, log2n: int, gpu: str) -> dict:
     pq = plan_query(ast.parse(FLAGSHIP_SQL), db)
     rows = pq.execute()
     cold = time.perf_counter() - t0
-    launches = fused2_cuda.launches
     counts = dict(pq.perfmon.counts)
     _log(f"slice: cold query {cold * 1e3:.3f} ms, perfmon {counts}, "
-         f"K1 launches {launches}")
-    if launches < 1:
+         f"K1 launches {fused2_cuda.launches}")
+    if fused2_cuda.launches < 1:
         raise AssertionError("the slice never launched K1")
     for ctr, want in (("device_chunks", n >> 26 if n >= 1 << 26 else 1),
                       ("recheck_chunks", 0), ("unported_host_exact", 0)):
@@ -597,11 +735,6 @@ def phase_slice(seed: int, log2n: int, gpu: str) -> dict:
                                  f"expected {want}")
     _check_flagship(rows, expected)
     _log("slice: count(x), sum(y) exact and sum(x) within rel 1e-5 of numpy")
-    with override(perfmon=True):
-        text = "\n".join(r[0] for r in execute("EXPLAIN ANALYZE " +
-                                               FLAGSHIP_SQL, db).rows)
-    _log(text)
-
     warm = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -609,12 +742,19 @@ def phase_slice(seed: int, log2n: int, gpu: str) -> dict:
         warm.append(time.perf_counter() - t0)
         _check_flagship(res.rows, expected)
     med = statistics.median(warm)
+    # the main path's launches: the cold query and the five warm ones
+    launches = fused2_cuda.launches
+    with override(perfmon=True):
+        text = "\n".join(r[0] for r in execute("EXPLAIN ANALYZE " +
+                                               FLAGSHIP_SQL, db).rows)
+    _log(text)
     timing = {"cold_ms": cold * 1e3, "warm_ms": med * 1e3,
               "warm_all_ms": [w * 1e3 for w in warm],
               "rows_per_s": n / med, "launches": launches}
     _log(f"slice timing [{gpu}]: cold {cold * 1e3:.3f} ms, warm median "
          f"{med * 1e3:.3f} ms of {[round(w * 1e3, 3) for w in warm]}, "
-         f"{n / med:.6e} rows/s")
+         f"{n / med:.6e} rows/s; K1 launches {launches} (cold and warm "
+         "runs)")
 
     # the kernel alone and its plain version at the main path's chunk shape
     timing.update(_time_chunk(db, gpu))
@@ -623,11 +763,11 @@ def phase_slice(seed: int, log2n: int, gpu: str) -> dict:
 
 def _time_chunk(db, gpu: str) -> dict:
     """K1 and its plain version on the first resident flagship chunk."""
-    import torch
     from pg_strom_tpu_torch import T
     from pg_strom_tpu_torch.exec.devcache import TCACHE, chunk_capacity
     from pg_strom_tpu_torch.expr.ir import Const, resolve_function
     from pg_strom_tpu_torch.expr.lower_torch import schema_from_chunk_columns
+    from pg_strom_tpu_torch.ops.launch_plan import plan_launch
     from pg_strom_tpu_torch.ops.preagg_fused2 import (
         derive_v2_plan, fused2_cuda, fused2_reference, _kernel_planes)
     t = db.get("t")
@@ -645,44 +785,32 @@ def _time_chunk(db, gpu: str) -> dict:
     scal = {"i": plan.scal_i, "u": plan.scal_u, "f4sc": plan.f4sc,
             "f4e": plan.f4e}
     planes = _kernel_planes(plan.sig, cc.planes)
+    G, K = plan.G, plan.sig.ncols
+    n_sh = len(plan.sig.shadow_map)
     err = _compare(plan, pred, cc.planes, cc.nrows)
 
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     def kern():
-        return fused2_cuda(plan.sig, planes, cc.nrows, scal, plan.G, pred)
+        return fused2_cuda(plan.sig, planes, cc.nrows, scal, G, pred)
 
     def plain():
-        return fused2_reference(plan.sig, planes, cc.nrows, scal, plan.G,
-                                pred)
+        return fused2_reference(plan.sig, planes, cc.nrows, scal, G, pred)
 
-    # plain, kernel, kernel, plain on one card
-    p1 = timed(plain, 2)
-    k1 = timed(kern, 20)
-    k2 = timed(kern, 20)
-    p2 = timed(plain, 2)
-    ms, plain_ms = min(k1, k2), min(p1, p2)
     # K1 reads its planes once and writes [G, K] int64 sums and the shadow
     # float sums; it does one add per row and column
-    b = _bound(_tensor_bytes(planes) + plan.G * plan.sig.ncols * 12,
-               cc.nrows * plan.sig.ncols)
-    _log(f"K1 at the main-path chunk ({cc.nrows} rows, G={plan.G}, "
-         f"K={plan.sig.ncols}) [{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, "
-         f"plain PyTorch {p1:.4f} / {p2:.4f} ms, bound {b['bound_ms']:.4f} "
-         f"ms ({b['bound_by']}: {b['bound_bytes']:.0f} B, "
+    b = _bound(_tensor_bytes(planes) + G * K * 12, cc.nrows * K)
+    # plain, kernel, kernel, plain on one card
+    p1 = _time(plain, 2)
+    k1, k2 = _time(kern, 20), _time(kern, 20)
+    p2 = _time(plain, 2)
+    lp = plan_launch(G, K, n_sh, 0)
+    _log(f"K1 at the main-path chunk ({cc.nrows} rows, G={G}, K={K}), block "
+         f"{lp.block}, {lp.ntiles} column tile(s), ~{lp.smem} B shared "
+         f"memory [{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch "
+         f"{p1:.4f} / {p2:.4f} ms, bound {b['bound_ms']:.4f} ms "
+         f"({b['bound_by']}: {b['bound_bytes']:.0f} B, "
          f"{b['bound_ops']:.0f} ops), no single PyTorch call")
-    return {"ms": ms, "plain_ms": plain_ms, "chunk_err": err, **b,
-            "library_ms": None}
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "chunk_err": err,
+            **b, "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -859,6 +987,7 @@ def phase_testdb(seed: int, log2n: int, gpu: str) -> dict:
                  f"of {[round(w * 1e3, 3) for w in warm]} "
                  f"(K2 launches per warm run {k2w}, warm perfmon {counts})")
         out["k2_launches"] = pf.fused_cuda.launches
+        _log(f"t0: K2 launches {pf.fused_cuda.launches}")
         out["chunk"] = _time_k2_chunk(db, gpu)
         # 4d runs inside this database so that t0 is built and uploaded once
         out["joins"] = phase_joins(db, seed, gpu)
@@ -909,7 +1038,8 @@ def _time(fn, reps):
 
 def _t0_chunk_lanes(db, G: int):
     """agg_group's K2 inputs on the first resident t0 chunk at G buckets
-    (the cold run's G = 1024, the warm run's G = 32)."""
+    (the cold run's G = 1024, the warm run's G = 32; below 26 buckets the
+    26 codes fold, cat % G)."""
     import torch
     from pg_strom_tpu_torch import T
     from pg_strom_tpu_torch.exec.devcache import TCACHE, chunk_capacity
@@ -925,17 +1055,23 @@ def _t0_chunk_lanes(db, G: int):
     y = DVal(T.FLOAT8, pl["y"][0], pl["y"][1])
     aggs = [_inst("count"), _inst("sum", T.FLOAT8), _inst("avg", T.FLOAT8)]
     kd = key.data.to(torch.int64)
-    seg = torch.where(mask, kd.to(torch.int32),
+    seg = torch.where(mask, (kd % G).to(torch.int32),
                       torch.full_like(key.data, G))
     return [key], aggs, [[], [x], [y]], mask, seg, cc.nrows
 
 
+# G of K2's chunk timings: agg_group's warm 32 and cold 1024, star_group's
+# 128
+K2_TIMED_G = (32, 128, 1024)
+
+
 def _time_k2_chunk(db, gpu: str) -> dict:
-    """K2 alone and its plain version on the 2^26-row agg_group chunk, for
-    G = 32 and G = 1024."""
+    """K2 alone and its plain version on the 2^26-row agg_group chunk at
+    each G of K2_TIMED_G (plain, kernel, kernel, plain)."""
     from pg_strom_tpu_torch.ops import preagg_fused as pf
+    from pg_strom_tpu_torch.ops.launch_plan import plan_launch
     res = {}
-    for G in (32, 1024):
+    for G in K2_TIMED_G:
         keys, aggs, vals, mask, seg, n = _t0_chunk_lanes(db, G)
         err, plan, (inputs, sc, seg), _ = _k2_compare(
             f"t0 chunk G={G}", keys, aggs, vals, mask, seg, G, n, True)
@@ -946,19 +1082,17 @@ def _time_k2_chunk(db, gpu: str) -> dict:
         def plain():
             return pf.fused_reference(plan, seg, inputs, sc, G, n)
         p1 = _time(plain, 1)
-        k1 = _time(kern, 10)
-        k2 = _time(kern, 10)
+        k1, k2 = _time(kern, 10), _time(kern, 10)
         p2 = _time(plain, 1)
-        from pg_strom_tpu_torch.ops.preagg_pallas import tile_columns
-        Kt, smem = tile_columns(G, plan.ncols, True)
         b = _bound(_tensor_bytes(list(inputs) + [seg])
                    + G * plan.ncols * 12, n * plan.ncols)
         res[G] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err,
                   **b, "library_ms": None}
-        _log(f"K2 at the agg_group chunk ({n} rows, G={G}, K={plan.ncols}, "
-             f"{-(-plan.ncols // Kt)} column tile(s) of {Kt}, {smem} B shared "
-             f"memory) [{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch "
-             f"{p1:.4f} / {p2:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        lp = plan_launch(G, plan.ncols, _k2_shadows(plan), 0)
+        _log(f"K2 at the agg_group chunk ({n} rows, G={G}, K={plan.ncols}), "
+             f"block {lp.block}, {lp.ntiles} column tile(s), ~{lp.smem} B "
+             f"shared memory [{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain "
+             f"PyTorch {p1:.4f} / {p2:.4f} ms, bound {b['bound_ms']:.4f} ms "
              f"({b['bound_by']}), no single PyTorch call")
     return res
 
@@ -1484,6 +1618,7 @@ def main(argv=None) -> int:
     for line in (kc.build_log or "").splitlines():
         if "ptxas" in line or line.startswith("=="):
             _log(f"  {line.strip()}")
+    _log_sass_atomics(kc.library_path())
 
     err = phase_kernels(args.seed, args.kernel_rows_log2)
     err = max(err, phase_kernels_k2k4(args.seed, args.kernel_rows_log2))
@@ -1512,7 +1647,7 @@ def main(argv=None) -> int:
         "source": "pg_strom_tpu_torch/ops/cuda/preagg_fused.cu",
         "replaces": "pg_strom_tpu/ops/preagg_fused.py:284",
         "launches": t0db["k2_launches"],
-        "max_abs_err": max(err, chunk[32]["err"], chunk[1024]["err"]),
+        "max_abs_err": max([err] + [c["err"] for c in chunk.values()]),
         **{c: chunk[32][c] for c in cols},
     }, {
         "name": "mxu_lookup (K3)",

@@ -6,15 +6,17 @@ into one shared library with a plain C interface (no PyTorch headers, so
 it builds in seconds); ctypes binds it, and the wrappers pass
 `data_ptr()`s and PyTorch's current stream.  The library is built at first
 use into `pg_strom_tpu_torch/_build/` (listed in .gitignore), under a name
-keyed by a hash of the sources and the flags, and moved into place with an
+keyed by a hash of every `.cu` and `.cuh` file of the directory and the
+flags (an edited header rebuilds too), and moved into place with an
 atomic rename so that concurrent processes never load a half-written
 file.  A missing nvcc, a failed build or a failed launch raises: no kernel
 gives way to its plain version.
 
-  K1  preagg_fused2.cu  fused pre-aggregation over raw column planes
-  K2  preagg_fused.cu   fused pre-aggregation over encoded lanes
-  K4  preagg_pallas.cu  segmented column sums of a value matrix
-  K3  mxu_lookup.cu     table lookup out[i] = table[idx[i]]
+  K1  preagg_fused2.cu    fused pre-aggregation over raw column planes
+  K2  preagg_fused.cu     fused pre-aggregation over encoded lanes
+      onehot_accum.cuh    their accumulation core (32-bit shared adds)
+  K4  preagg_pallas.cu    segmented column sums of a value matrix
+  K3  mxu_lookup.cu       table lookup out[i] = table[idx[i]]
 """
 
 from __future__ import annotations
@@ -59,13 +61,18 @@ def _nvcc() -> str:
                        "sources in this package at first use")
 
 
-def library_path() -> str:
+def library_path(src_dir: str = _DIR, build_dir: str = _BUILD_DIR) -> str:
+    """Where the library of these sources and flags lives: keyed by every
+    `.cu` and `.cuh` file of `src_dir` (names and contents)."""
     h = hashlib.sha256()
-    for s in SOURCES:
-        with open(os.path.join(_DIR, s), "rb") as f:
-            h.update(f.read())
+    for s in sorted(os.listdir(src_dir)):
+        if s.endswith((".cu", ".cuh")):
+            h.update(s.encode())
+            with open(os.path.join(src_dir, s), "rb") as f:
+                h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f"libpgstrom_kernels-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir,
+                        f"libpgstrom_kernels-{h.hexdigest()[:16]}.so")
 
 
 def build() -> str:
@@ -114,16 +121,15 @@ def library() -> ctypes.CDLL:
             L = ctypes.CDLL(build())
             c_int, c_ptr, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
             L.pgstrom_k1_launch.restype = c_int
+            geo = ctypes.POINTER(c_int)     # the launch plan's int32 vector
             L.pgstrom_k1_launch.argtypes = [
                 c_ptr, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
-                c_ll, c_int, c_int, c_int, c_int, c_int, c_int,
-                c_int, c_int, c_ptr, c_ptr, c_int, c_int, ctypes.c_size_t,
-                c_ptr]
+                c_ll, c_int, c_int, c_int, c_int, geo, c_ptr, c_ptr, c_int,
+                ctypes.c_size_t, c_ptr]
             L.pgstrom_k2_launch.restype = c_int
             L.pgstrom_k2_launch.argtypes = [
-                c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_ll, c_int,
-                c_int, c_int, c_int, c_ptr, c_ptr, c_int, c_int, c_int,
-                ctypes.c_size_t, c_ptr]
+                c_ptr, c_int, c_int, c_int, c_ptr, c_ll, geo, c_ptr, c_ptr,
+                c_int, ctypes.c_size_t, c_ptr]
             L.pgstrom_k4_launch.restype = c_int
             L.pgstrom_k4_launch.argtypes = [
                 c_ptr, c_ptr, c_ptr, c_ll, c_int, c_int, c_int, c_int,

@@ -24,24 +24,25 @@
 //   fabs    1 col   shadow |x|
 //   f32     1 col   shadow x
 //
-// The TPU's P=8 row packing, bf16 digits and 2^16-row hi/lo flush exist
-// for the MXU and have no counterpart: sums are int64 here.
+// Every digit is an integer in [-255, 255].  The row decoder below turns a
+// row into those digits; the accumulation core (onehot_accum.cuh) sums
+// them per bucket with 32-bit native shared-memory adds into a
+// block-private table, one column tile wherever it fits (G = 1024, K = 42
+// included), in the launch ops/launch_plan.py plans.
 //
-// What bounds it on an H100: per row it reads the bucket id and a few
-// lanes (about 20 bytes at the agg_group shape) and then issues one
-// shared-memory atomic add per non-zero cell, tens per row, many on the
-// same few rows when G is small.  The design keeps a block-private
-// [G, Kt] accumulator in shared memory, walks the rows with a grid-stride
-// loop, and flushes the non-zero cells to global memory once per block.
-// When G * K cells do not fit the shared memory the columns are tiled:
-// blockIdx.y picks a tile of Kt columns and each tile re-reads the lanes.
-// wgmma, TMA and warp-specialised reduction are later work.
+// What bounds it on an H100: it reads the bucket id and a few lanes (about
+// 23 bytes a row at the agg_group shape), so bytes bound it at 0.46 ms per
+// 2^26 rows.  The cells are 32-bit because a 64-bit shared-memory add is a
+// compare-and-swap loop on this card, and because they let G = 1024 read
+// its lanes once, in one column tile.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (the
 // digit extraction must stay IEEE-identical to the plain PyTorch version).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "onehot_accum.cuh"
 
 namespace {
 
@@ -58,82 +59,53 @@ __device__ __forceinline__ int op_width(int tag) {
   }
 }
 
-struct Acc {
-  unsigned long long* ints;  // [G, Kt] row of the current bucket
-  float* sh;
-  int c0, c1;
-  __device__ __forceinline__ void add(int c, long long v) const {
-    if (v != 0 && c >= c0 && c < c1)
-      atomicAdd(ints + (c - c0), (unsigned long long)v);
-  }
-  __device__ __forceinline__ void addf(int c, float v) const {
-    if (v != 0.f && c >= c0 && c < c1) atomicAdd(sh + (c - c0), v);
-  }
-};
-
-__device__ __forceinline__ void add_limbs(const Acc& a, int col, unsigned u,
-                                          int nl) {
-  for (int j = 0; j < nl; ++j) a.add(col + j, (long long)((u >> (8 * j)) & 0xFFu));
+__device__ __forceinline__ void put_limbs(const onehot::Sink& s, int col,
+                                          unsigned u, int nl) {
+  for (int j = 0; j < nl; ++j) s.digit(col + j, (int)((u >> (8 * j)) & 0xFFu));
 }
 
-__global__ void k2_kernel(const int* __restrict__ desc, int desc_len, int n_in,
-                          int n_ops, const float* __restrict__ scale,
-                          const int* __restrict__ seg,
-                          long long nrows, int G, int K, int Kt,
-                          int has_shadow, unsigned long long* __restrict__ g_ints,
-                          float* __restrict__ g_shadow) {
-  extern __shared__ unsigned long long smem[];
-  const int c0 = blockIdx.y * Kt;
-  const int c1 = min(K, c0 + Kt);
-  const int cells = G * Kt;
-  unsigned long long* s_acc = smem;
-  unsigned long long* s_ptr = smem + cells;
-  float* s_sh = reinterpret_cast<float*>(s_ptr + n_in);
-  int* s_ops = reinterpret_cast<int*>(s_sh + (has_shadow ? cells : 0));
-  const int ops_len = desc_len - 2 * n_in;
+// lanes: the encoded inputs, then the bucket ids (lane n_in)
+struct K2Dec {
+  const int* ops;  // [n_ops, OP_W]
+  int n_ops, G, seg_lane;
+  const float* scale;
 
-  for (int i = threadIdx.x; i < n_in; i += blockDim.x)
-    s_ptr[i] = (unsigned long long)(unsigned)desc[2 * i] |
-               ((unsigned long long)(unsigned)desc[2 * i + 1] << 32);
-  for (int i = threadIdx.x; i < ops_len; i += blockDim.x)
-    s_ops[i] = desc[2 * n_in + i];
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) s_acc[i] = 0ull;
-  if (has_shadow)
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) s_sh[i] = 0.f;
-  __syncthreads();
+  __device__ __forceinline__ int bucket(const onehot::Row& a) const {
+    const int g = (int)a.u32(seg_lane);
+    return (unsigned)g < (unsigned)G ? g : -1;  // else a dropped row
+  }
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < nrows; r += stride) {
-    const int g = seg[r];
-    if ((unsigned)g >= (unsigned)G) continue;  // dropped row
-    Acc a{s_acc + (size_t)g * Kt, s_sh + (size_t)g * Kt, c0, c1};
+  __device__ __forceinline__ void row(const onehot::Row& a,
+                                      const onehot::Sink& s, int c0,
+                                      int c1) const {
+    int si = 0;  // running index of the shadow columns
     for (int o = 0; o < n_ops; ++o) {
-      const int* op = s_ops + o * OP_W;
+      const int* op = ops + o * OP_W;
       const int tag = op[0], col = op[1], in = op[2];
+      const bool is_sh = tag == OP_FABS || tag == OP_F32;
+      const int my_si = si;
+      si += is_sh;
       if (col >= c1 || col + op_width(tag) <= c0) continue;  // other tile
       switch (tag) {
         case OP_MASK:
-          a.add(col, 1);
+          s.digit(col, 1);
           break;
-        case OP_BOOL: {
-          const unsigned char b = reinterpret_cast<const unsigned char*>(s_ptr[in])[r];
-          a.add(col, b != 0);
+        case OP_BOOL:
+          s.digit(col, a.u8(in) != 0);
           break;
-        }
         case OP_LIMBS4:
-          add_limbs(a, col, reinterpret_cast<const unsigned*>(s_ptr[in])[r], 4);
+          put_limbs(s, col, a.u32(in), 4);
           break;
         case OP_KSQ12: {
-          const unsigned u = reinterpret_cast<const unsigned*>(s_ptr[in])[r];
+          const unsigned u = a.u32(in);
           const unsigned hi = u >> 16, lo = u & 0xFFFFu;
-          add_limbs(a, col, lo * lo, 4);
-          add_limbs(a, col + 4, hi * lo, 4);
-          add_limbs(a, col + 8, hi * hi, 4);
+          put_limbs(s, col, lo * lo, 4);
+          put_limbs(s, col + 4, hi * lo, 4);
+          put_limbs(s, col + 8, hi * hi, 4);
           break;
         }
         case OP_F4S: {
-          const float x = reinterpret_cast<const float*>(s_ptr[in])[r];
+          const float x = __uint_as_float(a.u32(in));
           const float pos = x > 0.f ? x : 0.f;
           const float neg = x < 0.f ? -x : 0.f;  // NaN: both zero
           const bool sneg = x < 0.f;
@@ -147,46 +119,76 @@ __global__ void k2_kernel(const int* __restrict__ desc, int desc_len, int n_in,
           }
           for (int j = 0; j < 9; ++j) {
             const int d = (iv[2 - j / 3] >> (8 * (j % 3))) & 0xFF;
-            a.add(col + j, sneg ? -d : d);
+            s.digit(col + j, sneg ? -d : d);
           }
           break;
         }
         case OP_FABS:
-          a.addf(col, fabsf(reinterpret_cast<const float*>(s_ptr[in])[r]));
+          s.shadow(col, my_si, fabsf(__uint_as_float(a.u32(in))));
           break;
         default:  // OP_F32
-          a.addf(col, reinterpret_cast<const float*>(s_ptr[in])[r]);
+          s.shadow(col, my_si, __uint_as_float(a.u32(in)));
           break;
       }
     }
   }
+};
 
-  __syncthreads();
-  const int kt = c1 - c0;
-  for (int i = threadIdx.x; i < G * kt; i += blockDim.x) {
-    const int g = i / kt, j = i % kt;
-    const unsigned long long v = s_acc[g * Kt + j];
-    if (v) atomicAdd(g_ints + (size_t)g * K + c0 + j, v);
-    if (has_shadow) {
-      const float f = s_sh[g * Kt + j];
-      if (f != 0.f) atomicAdd(g_shadow + (size_t)g * K + c0 + j, f);
-    }
-  }
+// the descriptor: lane addresses (lo, hi int32 words; the n_in encoded
+// lanes, then the bucket ids), the op table, then the shadow columns'
+// indexes; loaded into shared memory after the core
+struct K2Args {
+  const int* desc;
+  int desc_len, n_in, n_ops;
+  const float* scale;
+  long long nrows;
+  unsigned long long* ints;
+  float* shadow;
+};
+
+__device__ __forceinline__ K2Dec k2_prologue(const K2Args& a,
+                                             const onehot::Geo& q,
+                                             unsigned char* smem,
+                                             const unsigned long long** lanes,
+                                             const int** shcol) {
+  const int nl = a.n_in + 1;
+  unsigned char* p = smem + onehot::core_bytes(q);
+  unsigned long long* s_ptr = reinterpret_cast<unsigned long long*>(p);
+  int* s_ops = reinterpret_cast<int*>(s_ptr + nl);
+  const int ops_len = a.desc_len - 2 * nl;
+  for (int i = threadIdx.x; i < nl; i += blockDim.x)
+    s_ptr[i] = (unsigned long long)(unsigned)a.desc[2 * i] |
+               ((unsigned long long)(unsigned)a.desc[2 * i + 1] << 32);
+  for (int i = threadIdx.x; i < ops_len; i += blockDim.x)
+    s_ops[i] = a.desc[2 * nl + i];
+  *lanes = s_ptr;
+  *shcol = s_ops + a.n_ops * OP_W;
+  return K2Dec{s_ops, a.n_ops, q.G, a.n_in, a.scale};
+}
+
+// the core's first barrier publishes the tables
+__global__ void k2_kernel(K2Args a, onehot::Geo q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const unsigned long long* lanes;
+  const int* shcol;
+  const K2Dec dec = k2_prologue(a, q, smem, &lanes, &shcol);
+  onehot::run<K2Dec>(dec, lanes, q, a.nrows, smem, shcol, a.ints, a.shadow);
 }
 
 }  // namespace
 
+// geo: the planner's int32 vector (onehot::Geo); grid_x <= 0 fills the
+// card; returns a cudaError_t, or onehot::ERR_SMEM_PLAN
 extern "C" int pgstrom_k2_launch(const int* desc, int desc_len, int n_in,
-                                 int n_ops, const float* scale, const int* seg,
-                                 long long nrows, int G, int K, int Kt,
-                                 int has_shadow, unsigned long long* ints,
-                                 float* shadow, int grid_x, int grid_y,
-                                 int block, size_t smem, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      k2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  k2_kernel<<<dim3(grid_x, grid_y), block, smem, (cudaStream_t)stream>>>(
-      desc, desc_len, n_in, n_ops, scale, seg, nrows, G, K, Kt, has_shadow,
-      ints, shadow);
-  return (int)cudaGetLastError();
+                                 int n_ops, const float* scale,
+                                 long long nrows, const int* geo,
+                                 unsigned long long* ints, float* shadow,
+                                 int grid_x, size_t smem, void* stream) {
+  const onehot::Geo q = onehot::Geo::load(geo);
+  const size_t nl = (size_t)n_in + 1;
+  const size_t tables = 8 * nl + 4 * ((size_t)desc_len - 2 * nl);
+  if (smem < onehot::core_bytes(q) + tables) return onehot::ERR_SMEM_PLAN;
+  const K2Args a{desc, desc_len, n_in, n_ops, scale, nrows, ints, shadow};
+  return onehot::launch(k2_kernel, a, q, nrows, grid_x, smem,
+                        (cudaStream_t)stream);
 }

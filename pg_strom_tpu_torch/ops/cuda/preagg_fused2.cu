@@ -6,7 +6,7 @@
 // seg = key - kmin (NULL key -> rng + 1), and per physical column the exact
 // sum of that column's per-row value over the rows of each bucket:
 //
-//   ints   int64 [G, K]   two's-complement sums (u64 atomics)
+//   ints   int64 [G, K]   two's-complement sums
 //   shadow float  [G, K]  sum of |x| for the `fabs` columns (NaN/inf kept)
 //
 // One fixed kernel, driven by tables (ops/preagg_fused2.py lower_program):
@@ -16,21 +16,23 @@
 // (data, valid) stack kept in two 32-bit registers — PostgreSQL float
 // order (NaN == NaN, NaN above everything) and Kleene AND/OR/NOT.
 //
+// The row decoder below turns a live row into its digits (integers in
+// [-255, 255]: 8-bit limbs, 7- or 8-bit float digits, 0/1 counts); the
+// accumulation core shared with K2 (onehot_accum.cuh) sums them per bucket
+// with 32-bit native shared-memory adds into a block-private table, tiled
+// by columns where [G, K] does not fit one block, in the launch
+// ops/launch_plan.py plans.
+//
 // What bounds it on an H100: it reads each plane once (18 bytes a row at
-// the flagship shape), yet measured about 0.14 of HBM bandwidth there
-// (2.62 ms per 2^26-row chunk, H100 80GB HBM3 at 700 W), so bandwidth is
-// not the limit; the per-row, per-column atomic adds are its work.  The
-// design keeps those adds in shared memory: each block owns a private
-// [G, K] accumulator when G*K fits, walks its rows with a grid-stride
-// loop, skips zero contributions, and flushes the non-zero cells to global
-// memory once.  Wider G*K adds straight into global memory.  Warp-level
-// aggregation, wgmma and TMA are later work.
+// the flagship shape), 0.36 ms per 2^26-row chunk at 3.35 TB/s.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (float32
 // digit extraction must stay IEEE-identical to the plain PyTorch version).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "onehot_accum.cuh"
 
 namespace {
 
@@ -46,7 +48,6 @@ enum { P_CMP = 1, P_NULLTEST, P_BOOLCOL, P_CONST, P_AND, P_OR, P_NOT };
 enum { DT_I32, DT_F32, DT_I64, DT_BOOL };
 
 struct Tables {
-  const unsigned long long* ptr;  // plane addresses [n_in]
   const int* dtype;               // plane element types [n_in]
   const int* ops;                 // [n_ops, OP_W]
   const int* pred;                // [n_prog, PRED_W]
@@ -55,38 +56,31 @@ struct Tables {
   const float* f4sc;              // [2, nf4]: two-step float4 scales
 };
 
-__device__ __forceinline__ bool rd_valid(const Tables& t, int vin, long long r) {
+// plane reads through the core's row accessor (onehot_accum.cuh)
+__device__ __forceinline__ bool rd_valid(const onehot::Row& a, int vin) {
   if (vin < 0) return true;  // validity elided: NULL-free column
-  return reinterpret_cast<const unsigned char*>(t.ptr[vin])[r] != 0;
+  return a.u8(vin) != 0;
 }
 
-__device__ __forceinline__ int rd_i32(const Tables& t, int i, long long r) {
-  if (t.dtype[i] == DT_BOOL)
-    return reinterpret_cast<const unsigned char*>(t.ptr[i])[r] != 0;
-  return reinterpret_cast<const int*>(t.ptr[i])[r];
+__device__ __forceinline__ int rd_i32(const Tables& t, const onehot::Row& a,
+                                      int i) {
+  if (t.dtype[i] == DT_BOOL) return a.u8(i) != 0;
+  return (int)a.u32(i);
 }
 
-__device__ __forceinline__ float rd_f32(const Tables& t, int i, long long r) {
-  int dt = t.dtype[i];
-  if (dt == DT_F32) return reinterpret_cast<const float*>(t.ptr[i])[r];
-  return (float)rd_i32(t, i, r);  // int column in the float domain (RN)
+__device__ __forceinline__ float rd_f32(const Tables& t, const onehot::Row& a,
+                                        int i) {
+  if (t.dtype[i] == DT_F32) return __uint_as_float(a.u32(i));
+  return (float)rd_i32(t, a, i);  // int column in the float domain (RN)
 }
 
-__device__ __forceinline__ long long rd_i64(const Tables& t, int i, long long r) {
-  return reinterpret_cast<const long long*>(t.ptr[i])[r];
-}
-
-__device__ __forceinline__ void add_i(unsigned long long* p, long long v) {
-  if (v != 0) atomicAdd(p, (unsigned long long)v);
-}
-
-__device__ __forceinline__ void add_limbs(unsigned long long* p,
+__device__ __forceinline__ void put_limbs(const onehot::Sink& s, int col,
                                           unsigned long long u, int nl) {
-  for (int j = 0; j < nl; ++j) add_i(p + j, (long long)((u >> (8 * j)) & 0xFFull));
+  for (int j = 0; j < nl; ++j) s.digit(col + j, (int)((u >> (8 * j)) & 0xFFull));
 }
 
-// predicate over row r: TRUE (data & valid) keeps the row
-__device__ bool eval_pred(const Tables& t, int n_prog, long long r) {
+// predicate over the row: TRUE (data & valid) keeps the row
+__device__ bool eval_pred(const Tables& t, int n_prog, const onehot::Row& a) {
   unsigned sd = 0, sv = 0;  // (data, valid) stack, top at bit 0
   for (int p = 0; p < n_prog; ++p) {
     const int* in = t.pred + p * PRED_W;
@@ -97,14 +91,14 @@ __device__ bool eval_pred(const Tables& t, int n_prog, long long r) {
         const bool is_float = in[2] != 0;
         bool lt, eq;
         if (is_float) {
-          float x = in[3] == 0 ? rd_f32(t, in[4], r) : __int_as_float(in[4]);
-          float y = in[6] == 0 ? rd_f32(t, in[7], r) : __int_as_float(in[7]);
+          float x = in[3] == 0 ? rd_f32(t, a, in[4]) : __int_as_float(in[4]);
+          float y = in[6] == 0 ? rd_f32(t, a, in[7]) : __int_as_float(in[7]);
           bool xn = isnan(x), yn = isnan(y), nn = xn || yn;
           lt = (nn && !xn && yn) || (!nn && x < y);
           eq = (nn && xn && yn) || (!nn && x == y);
         } else {
-          int x = in[3] == 0 ? rd_i32(t, in[4], r) : in[4];
-          int y = in[6] == 0 ? rd_i32(t, in[7], r) : in[7];
+          int x = in[3] == 0 ? rd_i32(t, a, in[4]) : in[4];
+          int y = in[6] == 0 ? rd_i32(t, a, in[7]) : in[7];
           lt = x < y;
           eq = x == y;
         }
@@ -116,18 +110,18 @@ __device__ bool eval_pred(const Tables& t, int n_prog, long long r) {
           case 4: d = !(lt || eq); break;
           default: d = !lt; break;
         }
-        if (in[3] == 0) v = v && rd_valid(t, in[5], r);
-        if (in[6] == 0) v = v && rd_valid(t, in[8], r);
+        if (in[3] == 0) v = v && rd_valid(a, in[5]);
+        if (in[6] == 0) v = v && rd_valid(a, in[8]);
         break;
       }
       case P_NULLTEST: {
-        bool cv = rd_valid(t, in[2], r);
+        bool cv = rd_valid(a, in[2]);
         d = in[1] ? !cv : cv;
         break;
       }
       case P_BOOLCOL:
-        d = rd_i32(t, in[1], r) != 0;
-        v = rd_valid(t, in[2], r);
+        d = rd_i32(t, a, in[1]) != 0;
+        v = rd_valid(a, in[2]);
         break;
       case P_CONST:
         d = in[1] != 0;
@@ -158,8 +152,8 @@ __device__ bool eval_pred(const Tables& t, int n_prog, long long r) {
 
 // signed float4 digit window (op f4s): the top nl digits of |x| * 2^-E in
 // DB-bit digits, low digit first, each carrying the sign of x
-__device__ void add_f4_digits(unsigned long long* p, float x, int nl, int DB,
-                              float sc0, float sc1, bool use_abs) {
+__device__ void put_f4_digits(const onehot::Sink& s, int col, float x, int nl,
+                              int DB, float sc0, float sc1, bool use_abs) {
   const bool neg = x < 0.f;
   float av = use_abs ? fabsf(x)
                      : ((x > 0.f ? x : 0.f) + (x < 0.f ? -x : 0.f));  // NaN -> 0
@@ -178,137 +172,162 @@ __device__ void add_f4_digits(unsigned long long* p, float x, int nl, int DB,
   for (int j = 0; j < nl; ++j) {
     const int tt = j + drop;
     const int dg = (words[iters - 1 - tt / 3] >> ((tt % 3) * DB)) & dmask;
-    add_i(p + j, neg ? -dg : dg);
+    s.digit(col + j, neg ? -dg : dg);
   }
 }
 
-__global__ void k1_kernel(const int* __restrict__ desc, int desc_len, int n_in,
-                          int n_ops, int n_prog, int ni, int nu, int nf4,
-                          long long nrows, int key_d, int key_v, int rng, int G,
-                          int K, int DB, int has_shadow, int use_smem,
-                          unsigned long long* __restrict__ g_ints,
-                          float* __restrict__ g_shadow) {
-  extern __shared__ unsigned long long smem[];
-  const int cells = G * K;
-  unsigned long long* s_acc = smem;
-  unsigned long long* s_ptr = smem + (use_smem ? cells : 0);
-  float* s_sh = reinterpret_cast<float*>(s_ptr + n_in);
-  int* s_meta = reinterpret_cast<int*>(s_sh + ((use_smem && has_shadow) ? cells : 0));
-  const int meta_len = desc_len - 2 * n_in;
-
-  for (int i = threadIdx.x; i < n_in; i += blockDim.x)
-    s_ptr[i] = (unsigned long long)(unsigned)desc[2 * i] |
-               ((unsigned long long)(unsigned)desc[2 * i + 1] << 32);
-  for (int i = threadIdx.x; i < meta_len; i += blockDim.x)
-    s_meta[i] = desc[2 * n_in + i];
-  if (use_smem) {
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) s_acc[i] = 0ull;
-    if (has_shadow)
-      for (int i = threadIdx.x; i < cells; i += blockDim.x) s_sh[i] = 0.f;
-  }
-  __syncthreads();
-
+struct K1Dec {
   Tables t;
-  t.ptr = s_ptr;
-  t.dtype = s_meta;
-  t.ops = t.dtype + n_in;
-  t.pred = t.ops + n_ops * OP_W;
-  t.scal_i = t.pred + n_prog * PRED_W;
-  t.scal_u = reinterpret_cast<const unsigned*>(t.scal_i + ni);
-  t.f4sc = reinterpret_cast<const float*>(t.scal_u + nu);
-  unsigned long long* acc = use_smem ? s_acc : g_ints;
-  float* sh = (use_smem && has_shadow) ? s_sh : g_shadow;
-  const unsigned kmin = (unsigned)t.scal_i[0];
+  int n_ops, n_prog, nf4, key_d, key_v, rng, G, DB;
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < nrows;
-       r += stride) {
-    if (n_prog && !eval_pred(t, n_prog, r)) continue;
-    int seg = rd_valid(t, key_v, r)
-                  ? (int)((unsigned)rd_i32(t, key_d, r) - kmin)
-                  : rng + 1;
-    if ((unsigned)seg >= (unsigned)G) continue;  // outside every bucket
-    unsigned long long* arow = acc + (size_t)seg * K;
-    float* srow = sh + (size_t)seg * K;
+  __device__ __forceinline__ int bucket(const onehot::Row& a) const {
+    if (n_prog && !eval_pred(t, n_prog, a)) return -1;
+    const int seg = rd_valid(a, key_v)
+                        ? (int)((unsigned)rd_i32(t, a, key_d) -
+                                (unsigned)t.scal_i[0])
+                        : rng + 1;
+    return (unsigned)seg < (unsigned)G ? seg : -1;  // else outside every bucket
+  }
+
+  // every digit column of the live row, zeros where the argument is NULL
+  __device__ __forceinline__ void row(const onehot::Row& a,
+                                      const onehot::Sink& s, int c0,
+                                      int c1) const {
+    int si = 0;  // running index of the shadow (fabs) columns
     for (int o = 0; o < n_ops; ++o) {
       const int* op = t.ops + o * OP_W;
       const int tag = op[0], col = op[1], din = op[2], vin = op[3], nl = op[4];
       const int x = op[5];
+      const int my_si = si;
+      si += tag == OP_FABS;
+      if (col >= c1 || col + nl <= c0) continue;  // other column tile
       if (tag == OP_MASK) {
-        add_i(arow + col, 1);
+        s.digit(col, 1);
         continue;
       }
-      const bool ok = rd_valid(t, vin, r);
+      const bool ok = rd_valid(a, vin);
       switch (tag) {
         case OP_CNT:
-          if (ok) add_i(arow + col, 1);
+          s.digit(col, ok);
           break;
         case OP_SUM_I4:
-          if (ok) {
-            unsigned u = (unsigned)rd_i32(t, din, r) - (unsigned)t.scal_i[x];
-            add_limbs(arow + col, u, nl);
-          }
+          put_limbs(s, col,
+                    ok ? (unsigned)rd_i32(t, a, din) - (unsigned)t.scal_i[x] : 0u,
+                    nl);
           break;
-        case OP_SUM_I8:
-          if (ok) {
-            unsigned long long mn = (unsigned long long)t.scal_u[x] |
-                                    ((unsigned long long)t.scal_u[x + 1] << 32);
-            add_limbs(arow + col, (unsigned long long)rd_i64(t, din, r) - mn, nl);
-          }
+        case OP_SUM_I8: {
+          const unsigned long long mn =
+              (unsigned long long)t.scal_u[x] |
+              ((unsigned long long)t.scal_u[x + 1] << 32);
+          put_limbs(s, col,
+                    ok ? a.u64(din) - mn : 0ull, nl);
           break;
+        }
         case OP_SUMSQ4:
-        case OP_SUMSQ4_BIG:
-          if (ok) {
-            const int d = rd_i32(t, din, r);
-            const unsigned u = d < 0 ? 0u - (unsigned)d : (unsigned)d;
-            if (tag == OP_SUMSQ4) {
-              add_limbs(arow + col, u * u, nl);
-            } else {
-              const unsigned a = u >> 16, b = u & 0xFFFFu;
-              add_limbs(arow + col, b * b, 4);
-              add_limbs(arow + col + 4, a * b, 4);
-              add_limbs(arow + col + 8, a * a, 4);
-            }
+        case OP_SUMSQ4_BIG: {
+          const int d = ok ? rd_i32(t, a, din) : 0;
+          const unsigned u = d < 0 ? 0u - (unsigned)d : (unsigned)d;
+          if (tag == OP_SUMSQ4) {
+            put_limbs(s, col, u * u, nl);
+          } else {
+            const unsigned a = u >> 16, b = u & 0xFFFFu;
+            put_limbs(s, col, b * b, 4);
+            put_limbs(s, col + 4, a * b, 4);
+            put_limbs(s, col + 8, a * a, 4);
           }
           break;
+        }
         case OP_F4S:
-          if (ok)
-            add_f4_digits(arow + col, rd_f32(t, din, r), nl, DB, t.f4sc[x],
-                          t.f4sc[nf4 + x], op[6] != 0);
+          put_f4_digits(s, col, ok ? rd_f32(t, a, din) : 0.f, nl, DB,
+                        t.f4sc[x], t.f4sc[nf4 + x], op[6] != 0);
           break;
         case OP_FABS:
-          if (ok) atomicAdd(srow + col, fabsf(rd_f32(t, din, r)));
+          if (ok) s.shadow(col, my_si, fabsf(rd_f32(t, a, din)));
           break;
         default:
           break;
       }
     }
   }
+};
 
-  if (use_smem) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      if (s_acc[i]) atomicAdd(g_ints + i, s_acc[i]);
-      if (has_shadow && s_sh[i] != 0.f) atomicAdd(g_shadow + i, s_sh[i]);
-    }
-  }
+struct K1Args {
+  const int* desc;
+  int desc_len, n_in, n_ops, n_prog, ni, nu, nf4;
+  long long nrows;
+  int key_d, key_v, rng, DB;
+  unsigned long long* ints;
+  float* shadow;
+};
+
+// the descriptor: plane addresses (lo, hi int32 words), plane types, op
+// table, predicate program, scal_i, scal_u, f4 scales, then the shadow
+// columns' indexes; loaded into shared memory after the core
+__device__ __forceinline__ K1Dec k1_prologue(const K1Args& a,
+                                             const onehot::Geo& q,
+                                             unsigned char* smem,
+                                             const unsigned long long** lanes,
+                                             const int** shcol) {
+  unsigned char* p = smem + onehot::core_bytes(q);
+  unsigned long long* s_ptr = reinterpret_cast<unsigned long long*>(p);
+  int* s_meta = reinterpret_cast<int*>(s_ptr + a.n_in);
+  const int meta_len = a.desc_len - 2 * a.n_in;
+  for (int i = threadIdx.x; i < a.n_in; i += blockDim.x)
+    s_ptr[i] = (unsigned long long)(unsigned)a.desc[2 * i] |
+               ((unsigned long long)(unsigned)a.desc[2 * i + 1] << 32);
+  for (int i = threadIdx.x; i < meta_len; i += blockDim.x)
+    s_meta[i] = a.desc[2 * a.n_in + i];
+  *lanes = s_ptr;
+  K1Dec d;
+  d.t.dtype = s_meta;
+  d.t.ops = d.t.dtype + a.n_in;
+  d.t.pred = d.t.ops + a.n_ops * OP_W;
+  d.t.scal_i = d.t.pred + a.n_prog * PRED_W;
+  d.t.scal_u = reinterpret_cast<const unsigned*>(d.t.scal_i + a.ni);
+  d.t.f4sc = reinterpret_cast<const float*>(d.t.scal_u + a.nu);
+  *shcol = reinterpret_cast<const int*>(d.t.f4sc + 2 * a.nf4);
+  d.n_ops = a.n_ops;
+  d.n_prog = a.n_prog;
+  d.nf4 = a.nf4;
+  d.key_d = a.key_d;
+  d.key_v = a.key_v;
+  d.rng = a.rng;
+  d.G = q.G;
+  d.DB = a.DB;
+  return d;
+}
+
+// the core's first barrier publishes the tables
+__global__ void k1_kernel(K1Args a, onehot::Geo q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const unsigned long long* lanes;
+  const int* shcol;
+  const K1Dec dec = k1_prologue(a, q, smem, &lanes, &shcol);
+  onehot::run<K1Dec>(dec, lanes, q, a.nrows, smem, shcol, a.ints, a.shadow);
 }
 
 }  // namespace
 
+// geo: the planner's int32 vector (onehot::Geo); grid_x <= 0 fills the
+// card; returns a cudaError_t, or onehot::ERR_SMEM_PLAN
 extern "C" int pgstrom_k1_launch(const int* desc, int desc_len, int n_in,
                                  int n_ops, int n_prog, int ni, int nu, int nf4,
                                  long long nrows, int key_d, int key_v, int rng,
-                                 int G, int K, int DB, int has_shadow,
-                                 int use_smem, unsigned long long* ints,
-                                 float* shadow, int grid, int block,
-                                 size_t smem, void* stream) {
-  k1_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      desc, desc_len, n_in, n_ops, n_prog, ni, nu, nf4, nrows, key_d, key_v, rng,
-      G, K, DB, has_shadow, use_smem, ints, shadow);
-  return (int)cudaGetLastError();
+                                 int DB, const int* geo,
+                                 unsigned long long* ints, float* shadow,
+                                 int grid_x, size_t smem, void* stream) {
+  const onehot::Geo q = onehot::Geo::load(geo);
+  const size_t tables = 8 * (size_t)n_in + 4 * (size_t)(desc_len - 2 * n_in);
+  if (smem < onehot::core_bytes(q) + tables) return onehot::ERR_SMEM_PLAN;
+  const K1Args a{desc, desc_len, n_in, n_ops, n_prog, ni, nu, nf4, nrows,
+                 key_d, key_v, rng, DB, ints, shadow};
+  return onehot::launch(k1_kernel, a, q, nrows, grid_x, smem,
+                        (cudaStream_t)stream);
 }
 
 extern "C" const char* pgstrom_cuda_error_string(int code) {
+  if (code == onehot::ERR_SMEM_PLAN)
+    return "the launch plan's shared-memory bytes do not cover the kernel's "
+           "layout";
   return cudaGetErrorString((cudaError_t)code);
 }

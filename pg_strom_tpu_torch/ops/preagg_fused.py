@@ -13,9 +13,11 @@ tile with it on the MXU.  The port:
 * ports the lane encoding of `fused_mxu_reduce` to torch (it stays outside
   the kernel, as it stays in XLA in the reference);
 * runs the ops in one fixed CUDA kernel driven by an int32 op table
-  (ops/cuda/preagg_fused.cu): exact int64 sums per physical column and
-  float32 sums of the shadow columns, per bucket (`fused_cuda`), with the
-  plain PyTorch version beside it (`fused_reference`, over row blocks);
+  (ops/cuda/preagg_fused.cu, a row decoder on the accumulation core
+  ops/cuda/onehot_accum.cuh, launched as ops/launch_plan.py plans):
+  exact int64 sums per physical column and float32 sums of the shadow
+  columns, per bucket (`fused_cuda`), with the plain PyTorch version
+  beside it (`fused_reference`, over row blocks);
 * applies the reference's epilogue (`int_map` multipliers 1 and 2,
   `shadow_map`) in torch.
 
@@ -330,12 +332,15 @@ def fused_reference(plan: _Plan, seg: torch.Tensor, inputs,
 # ---------------------------------------------------------------------------
 
 def fused_cuda(plan: _Plan, seg: torch.Tensor, inputs, scales, G: int,
-               n: int):
+               n: int, *, grid: int | None = None):
     """Launch K2 (ops/cuda/preagg_fused.cu): the same (ints, shadow) as
-    fused_reference.  Raises on a bad input, a build or a launch failure."""
+    fused_reference.  Raises on a bad input, a build or a launch failure.
+
+    ops/launch_plan.py picks the block and the column tiles; `grid` fixes
+    the blocks per column tile (tests; the default fills the card)."""
     import ctypes
     from .cuda import library, cuda_error_text
-    from .preagg_pallas import tile_columns, launch_shape
+    from .launch_plan import plan_launch
     dev = seg.device
     if (seg.dtype != torch.int32 or not seg.is_contiguous()
             or seg.shape[0] < n or G > MAX_G):
@@ -357,30 +362,34 @@ def fused_cuda(plan: _Plan, seg: torch.Tensor, inputs, scales, G: int,
                          "lanes' device")
     K = plan.ncols
     table = op_table(plan)
-    ptrs = np.asarray([p.data_ptr() for p in inputs], np.uint64)
-    desc_np = np.concatenate([ptrs.view(np.int32),
-                              table.reshape(-1)]).astype(np.int32)
+    # descriptor: lane addresses (the inputs, then the bucket ids), the op
+    # table, the shadow columns in op order (the kernel's compact shadow
+    # table maps back through them)
+    shcol = np.asarray([r[1] for r in table if OPS[r[0]] in ("fabs", "f32")],
+                       np.int32)
+    ptrs = np.asarray([p.data_ptr() for p in (*inputs, seg)], np.uint64)
+    desc_np = np.concatenate([ptrs.view(np.int32), table.reshape(-1),
+                              shcol]).astype(np.int32)
     desc = torch.from_numpy(desc_np).to(dev)
-    has_shadow = any(op[0] in ("fabs", "f32") for op in plan.ops)
-    extra = 8 * len(inputs) + 4 * (len(desc_np) - 2 * len(inputs))
-    Kt, smem = tile_columns(G, K, has_shadow, extra)
-    ntiles = -(-K // Kt)
+    nl = len(inputs) + 1
+    lp = plan_launch(G, K, len(shcol), 8 * nl + 4 * (len(desc_np) - 2 * nl))
+    geo = (ctypes.c_int * len(lp.geo()))(*lp.geo())
     ints = torch.zeros((G, K), dtype=torch.int64, device=dev)
     shadow = torch.zeros((G, K), dtype=torch.float32, device=dev)
-    grid, block = launch_shape(dev, n, smem, ntiles)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pgstrom_k2_launch(
             ctypes.c_void_p(desc.data_ptr()), len(desc_np), len(inputs),
             len(table), ctypes.c_void_p(scales.data_ptr()),
-            ctypes.c_void_p(seg.data_ptr()),
-            ctypes.c_longlong(n), G, K, Kt, int(has_shadow),
+            ctypes.c_longlong(n), geo,
             ctypes.c_void_p(ints.data_ptr()),
-            ctypes.c_void_p(shadow.data_ptr()), grid, ntiles, block,
-            ctypes.c_size_t(smem), ctypes.c_void_p(stream))
+            ctypes.c_void_p(shadow.data_ptr()), grid or 0,
+            ctypes.c_size_t(lp.smem), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K2 launch failed: {cuda_error_text(rc)}")
+        raise RuntimeError(f"K2 launch failed ({lp.ntiles} column tile(s), "
+                           f"{lp.smem} B shared memory): "
+                           f"{cuda_error_text(rc)}")
     fused_cuda.launches += 1
     return ints, shadow
 

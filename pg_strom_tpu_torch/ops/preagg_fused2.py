@@ -15,7 +15,9 @@ matrix on the TPU's MXU.  This module ports it to PyTorch/CUDA:
   `biased_cols`, the int64 "lo"/"hi" inputs) so the two packages derive
   equal plans; the port maps both int64 inputs onto the raw int64 plane
   and emits unbiased sums.
-* **One fixed kernel, driven by tables** (ops/cuda/preagg_fused2.cu).
+* **One fixed kernel, driven by tables** (ops/cuda/preagg_fused2.cu, a
+  row decoder on the accumulation core ops/cuda/onehot_accum.cuh,
+  launched as ops/launch_plan.py plans).
   `lower_program` turns `sig.ops` into an int32 op table and the
   kernel-safe predicate into an int32 postfix program over a (data,
   valid) stack — PostgreSQL float order (NaN equals NaN and sorts above
@@ -908,15 +910,11 @@ def fused2_reference(sig: V2Sig, planes: Sequence[torch.Tensor], nrows: int,
 # the CUDA kernel's wrapper
 # ---------------------------------------------------------------------------
 
-_BLOCK = 256
-_BLOCKS_PER_SM = 4
-_SMEM_LIMIT = 48 * 1024        # dynamic shared memory without an opt-in
-
-
 def _descriptor(prog: K1Program, planes, scal: dict) -> tuple[np.ndarray,
                                                               int, int, int]:
     """One int32 launch descriptor: plane addresses (lo, hi words), plane
-    types, op table, predicate program, scal_i, scal_u, f4 scales."""
+    types, op table, predicate program, scal_i, scal_u, f4 scales, then the
+    shadow (fabs) columns in op order."""
     ptrs = np.asarray([p.data_ptr() for p in planes], np.uint64)
     scal_i = np.asarray(scal["i"], np.int32).reshape(-1)
     scal_u = np.asarray(scal["u"], np.uint32).reshape(-1)
@@ -925,17 +923,28 @@ def _descriptor(prog: K1Program, planes, scal: dict) -> tuple[np.ndarray,
         ptrs.view(np.int32),
         np.asarray([_DT_CODE[p.dtype] for p in planes], np.int32),
         prog.ops.reshape(-1), prog.pred.reshape(-1),
-        scal_i, scal_u.view(np.int32), f4sc.reshape(-1).view(np.int32)])
+        scal_i, scal_u.view(np.int32), f4sc.reshape(-1).view(np.int32),
+        _shadow_cols(prog)])
     return desc, len(scal_i), len(scal_u), f4sc.shape[1]
 
 
+def _shadow_cols(prog: K1Program) -> np.ndarray:
+    return np.asarray([r[1] for r in prog.ops if r[0] == OP_FABS], np.int32)
+
+
 def fused2_cuda(sig: V2Sig, planes: Sequence[torch.Tensor], nrows: int,
-                scal: dict, G: int, pred: Optional[Expr] = None):
+                scal: dict, G: int, pred: Optional[Expr] = None, *,
+                grid: int | None = None):
     """Launch K1 (ops/cuda/preagg_fused2.cu) on the planes' CUDA device:
     (ints int64[G, K], shadow float32[G, K]), same contract as
-    fused2_reference.  Raises on a build or launch failure."""
+    fused2_reference.  Raises on a build or launch failure.
+
+    ops/launch_plan.py picks the block and the column tiles (every v2
+    plan, G <= 4096, fits shared memory); `grid` fixes the blocks per
+    column tile (tests; the default fills the card)."""
     import ctypes
     from .cuda import library, cuda_error_text
+    from .launch_plan import plan_launch
     prog = lower_program(sig, pred)
     dev = planes[0].device
     N = planes[0].shape[0]
@@ -953,27 +962,22 @@ def fused2_cuda(sig: V2Sig, planes: Sequence[torch.Tensor], nrows: int,
     desc = torch.from_numpy(desc_np).to(dev)
     ints = torch.zeros((G, K), dtype=torch.int64, device=dev)
     shadow = torch.zeros((G, K), dtype=torch.float32, device=dev)
-    # shared memory: [acc u64 G*K][plane ptrs u64][shadow f32 G*K][rest of
-    # the descriptor]; per-block accumulators only when they fit
-    cells = G * K
-    base = 8 * len(planes) + 4 * (len(desc_np) - 2 * len(planes))
-    acc_bytes = cells * (8 + (4 if prog.has_shadow else 0))
-    use_smem = base + acc_bytes <= _SMEM_LIMIT
-    smem = base + (acc_bytes if use_smem else 0)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(-(-n // _BLOCK), sms * _BLOCKS_PER_SM))
+    lp = plan_launch(G, K, int(_shadow_cols(prog).shape[0]),
+                     8 * len(planes) + 4 * (len(desc_np) - 2 * len(planes)))
+    geo = (ctypes.c_int * len(lp.geo()))(*lp.geo())
     with torch.cuda.device(dev):        # launch on the planes' device
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pgstrom_k1_launch(
             ctypes.c_void_p(desc.data_ptr()), len(desc_np), len(planes),
             len(prog.ops), len(prog.pred), ni, nu, nf4,
-            ctypes.c_longlong(n), prog.key_d, prog.key_v, int(sig.rng), G,
-            K, 7 if sig.i8 else 8, int(prog.has_shadow), int(use_smem),
-            ctypes.c_void_p(ints.data_ptr()),
-            ctypes.c_void_p(shadow.data_ptr()), grid, _BLOCK,
-            ctypes.c_size_t(smem), ctypes.c_void_p(stream))
+            ctypes.c_longlong(n), prog.key_d, prog.key_v, int(sig.rng),
+            7 if sig.i8 else 8, geo, ctypes.c_void_p(ints.data_ptr()),
+            ctypes.c_void_p(shadow.data_ptr()), grid or 0,
+            ctypes.c_size_t(lp.smem), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K1 launch failed: {cuda_error_text(rc)}")
+        raise RuntimeError(f"K1 launch failed ({lp.ntiles} column tile(s), "
+                           f"{lp.smem} B shared memory): "
+                           f"{cuda_error_text(rc)}")
     fused2_cuda.launches += 1
     return ints, shadow
 

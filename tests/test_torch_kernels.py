@@ -9,8 +9,10 @@ imports jax, hence --noconftest there):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 The cases are chip_smoke.py's kernel phase at 2^16 rows with a ragged
-live-row tail; `ints` must be bit-equal and the host-replay decision the
-same."""
+live-row tail, K1 and K2 at the edges of their accumulation core's launch
+plan (ops/launch_plan.py: G not a multiple of 16, K = 114, column tiles),
+and the exactness windows at 2^24 rows on one and two blocks; `ints` must
+be bit-equal and the host-replay decision the same."""
 
 from __future__ import annotations
 
@@ -44,6 +46,39 @@ def test_kernel_matches_plain_version(cuda_device, name):
     assert plan is not None
     assert cs._compare(plan, pred, cs._device_cols(t, cuda_device),
                        n - 37) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", cs.KERNEL_EDGE_CASES)
+def test_kernel_edge_matches_plain_version(cuda_device, name):
+    """K1 at G = 8 (no multiple of 16, NaN in the float shadow), 128 and
+    256."""
+    n = 1 << 16
+    t = cs._case_table(name, np.random.default_rng(8), n)
+    pred, groups, aggs = cs._case_query(name, cs._cols(t))
+    plan = cs._k1_plan(t, name, pred, groups, aggs)
+    assert cs._compare(plan, pred, cs._device_cols(t, cuda_device),
+                       n - 37) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,data,G", cs.K2_EDGE_CASES)
+def test_k2_edge_matches_plain_version(cuda_device, name, data, G):
+    """K2 at G = 40 (no multiple of 16, NaN and inf in the shadows), 128,
+    256, and corr's K = 114 at G = 32 and in column tiles at G = 2048."""
+    n = 1 << 16
+    case = cs._k2_case(data, np.random.default_rng(9), n, cuda_device, G)
+    err, _, _, _ = cs._k2_compare(name, *case[:6], n - 37, case[6])
+    assert err == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_exactness_window(cuda_device, kernel):
+    """2^24 + 3 rows in one bucket at digit 255 on one and two blocks: past
+    the 2^23-row s32 flush of one block."""
+    window = cs.k1_exact_window if kernel == "K1" else cs.k2_exact_window
+    assert window(cuda_device, 20) == 0
 
 
 @pytest.mark.gpu
