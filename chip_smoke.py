@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch/CUDA port (pg_strom_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--rows-log2 27] [--kernel-rows-log2 20]
-                          [--k4-rows-log2 24]
 
 Phases, in order; any failure raises, exits non-zero and prints no `ok`:
 
@@ -12,7 +11,8 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    preagg_fused.cu, both on the accumulation core onehot_accum.cuh; K4
    preagg_pallas.cu, K3 mxu_lookup.cu; one nvcc per source, in parallel,
    sm_90a), print the build time and the ptxas reports, and the atomic
-   instructions each kernel compiled to (cuobjdump -sass);
+   instructions each kernel compiled to (cuobjdump -sass; K4's digit adds
+   must be native ATOMS.ADD, with no 64-bit compare-and-swap loop);
 3. hold each kernel against its plain PyTorch version on the card, at
    2^20 rows with nrows = 2^20 - 37: K1 over KERNEL_CASES and
    KERNEL_EDGE_CASES (G = 8, 128, 256), K2 over K2_CASES (dense text key
@@ -21,8 +21,11 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    group) and K2_EDGE_CASES (G = 40, 128, 256, corr's K = 114 at G = 32
    and 2048); the exactness windows (2^24 + 3 rows in one bucket at digit
    255 on one and two blocks: past the 2^23-row s32 flush of one block);
-   K4 over two of those value matrices at G = 32 and 2048: `ints`
-   bit-equal and the same host-replay decision;
+   K4 over the value matrices of two of those cases at G = 32 and 2048
+   and over K4_EDGE_CASES (G = 40 with NaN and inf in the shadows, 256,
+   1024, corr's wide matrix in column tiles at 2048), its exactness window
+   and a matrix with inf, NaN and digits past [-255, 255] in integer
+   columns: `ints` bit-equal and the same host-replay decision;
 3c. K3 against its plain version: 2^20 lookups at D in {100, 2048, 40960,
    65536} and K in {1, 2, 4}, with the edge, padding and out-of-range
    indexes: bit-equal;
@@ -45,18 +48,20 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    sums to rel 1e-9 against numpy; a torch.profiler pass over 3 warm
    join_agg runs; K3 alone, its plain version and torch.take on a 2^26-row
    probe chunk;
-4c. the K4 path: agg_group over a 2^24-row t0 with the fused kernel off
-   and use_pallas_reduce on: K4 launched, rows equal to the K2 run's;
+4c. the K4 path in 4b's database: agg_group with the fused kernel off
+   and use_pallas_reduce on, cold and 5 warm runs: K4 launched on every
+   chunk of each run, rows equal to the K2 path's as PostgreSQL text;
 5. a 2^14-row table, a 2^14-row t0 with NULLs and NaN, and small join
    tables (inner, left, full, residual ON, a non-unique build, nloops, a
    post-join qual, fused and pregrouped aggregates) through the device
    path and the host-exact tier: equal rows;
 6. timings (cold and warm queries, each kernel alone, its plain version,
    its bound and, where one exists, the single PyTorch call computing
-   the same function, at the main path's shapes; K1 at the flagship chunk
-   and K2 at the agg_group chunk for G in K2_TIMED_G, each with its launch
-   plan), each beside the card's name and power limit; then the card line,
-   the kernels' JSON line and, last, the `ok` line.
+   the same function, at the main path's shapes; K1 at the flagship chunk,
+   K2 at the agg_group chunk for G in K2_TIMED_G and K4 at that chunk's
+   value matrix for G in K4_TIMED_G, each with its launch plan), each
+   beside the card's name and power limit; then the card line, the
+   kernels' JSON line and, last, the `ok` line.
 """
 
 from __future__ import annotations
@@ -75,18 +80,18 @@ def _log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _log_sass_atomics(so: str) -> None:
+def _log_sass_atomics(so: str) -> dict:
     """The atomic instructions each kernel of the library compiled to
-    (cuobjdump -sass): a 64-bit or float shared-memory add that is a
-    compare-and-swap loop shows as ATOMS.CAS / ATOMS.CAST.SPIN, a native
-    one as ATOMS.ADD."""
+    (cuobjdump -sass), by kernel: a 64-bit or float shared-memory add that
+    is a compare-and-swap loop shows as ATOMS.CAS / ATOMS.CAST.SPIN, a
+    native one as ATOMS.ADD."""
     import collections
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         _log("SASS atomics: cuobjdump not found")
-        return
+        return {}
     r = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                        timeout=300)
     fn, found = None, collections.OrderedDict()
@@ -99,11 +104,14 @@ def _log_sass_atomics(so: str) -> None:
         m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9_.]+)", line)
         if m and fn is not None:
             found[fn][m.group(1)] += 1
+    out = {}
     for fn, ops in found.items():
         short = next((k for k in ("k1_kernel", "k2_kernel", "k3_kernel",
                                   "k4_kernel") if k in fn), fn)
+        out[short] = dict(ops)
         _log(f"SASS atomics {short}: "
              f"{dict(sorted(ops.items())) if ops else 'none'}")
+    return out
 
 
 def _gpu_line() -> str:
@@ -382,6 +390,15 @@ K2_EDGE_CASES = (("g40_nan_inf", "float4_nan_inf_null", 40),
                  ("g2048_corr_tiles", "corr_covar", 2048))
 
 
+# K4 at the edges of its launch plan: (name, K2_CASES data, G).  G = 40 is
+# no multiple of 16 (NaN and inf in the shadows), 256 and 1024 one column
+# tile each, corr's wide value matrix in column tiles at G = 2048
+K4_EDGE_CASES = (("g40_nan_inf", "float4_nan_inf_null", 40),
+                 ("g256", "two_hashed_int4", 256),
+                 ("g1024", "two_hashed_int4", 1024),
+                 ("g2048_corr_tiles", "corr_covar", 2048))
+
+
 def _dval(t, data, valid, dev):
     import torch
     from pg_strom_tpu_torch.expr.lower_torch import DVal
@@ -512,31 +529,100 @@ def _k2_compare(name, keys, aggs, vals, mask, seg, G, n, dense,
     return err, plan, (inputs, sc, seg), dec[0]
 
 
-def _k4_compare(name, keys, aggs, vals, mask, seg, G, n, dense):
-    import torch
-    from pg_strom_tpu_torch.ops import preagg_pallas as pp
+def _k4_inputs(keys, aggs, vals, mask, dense):
+    """(V, shadow columns, slot recipes) of one case's value matrix."""
     from pg_strom_tpu_torch.ops.preagg_mxu import (build_mxu_columns,
-                                                   mxu_recipes, mxu_overflow,
+                                                   mxu_recipes,
                                                    mxu_shadow_cols)
-    V, _ = build_mxu_columns(keys, aggs, vals, mask, seg.shape[0],
+    V, _ = build_mxu_columns(keys, aggs, vals, mask, mask.shape[0],
                              dense_key=dense)
     _, slotr, _ = mxu_recipes([k.t for k in keys], aggs,
                               [tuple(v.t for v in vs) for vs in vals],
                               dense_key=dense)
-    fc = mxu_shadow_cols(slotr)
+    return V, mxu_shadow_cols(slotr), slotr
+
+
+def _k4_check(name, V, seg, G, n, fc, slotr, grid=None) -> int:
+    """max |kernel - plain| over ints after requiring bit-equal ints and
+    the same replay decision (`slotr` None: shadows to rel 1e-4 instead,
+    NaN and inf in place)."""
+    import torch
+    from pg_strom_tpu_torch.ops import preagg_pallas as pp
+    from pg_strom_tpu_torch.ops.preagg_mxu import mxu_overflow
     seg = seg.to(torch.int32).contiguous()
-    ki, ks = pp.pallas_cuda(V, seg, G, n, fc)
+    ki, ks = pp.pallas_cuda(V, seg, G, n, fc, grid=grid)
     ri, rs = pp.pallas_reduce_reference(V, seg, G, n, fc)
     torch.cuda.synchronize()
     err = int((ki - ri).abs().max().item())
     if not torch.equal(ki, ri):
         raise AssertionError(f"K4 case {name} G={G}: ints differ from the "
                              f"plain version (max abs diff {err})")
-    dec = [mxu_overflow({"mxu_fsums": s[:, fc].double().cpu().numpy()},
-                        slotr) for s in (ks, rs)]
-    if dec[0] != dec[1]:
-        raise AssertionError(f"K4 case {name}: replay decisions differ")
-    return err, V.shape[1]
+    if slotr is None:
+        same = torch.allclose(ks, rs, rtol=1e-4, atol=1e-3, equal_nan=True)
+    else:
+        dec = [mxu_overflow({"mxu_fsums": s[:, fc].double().cpu().numpy()},
+                            slotr) for s in (ks, rs)]
+        same = dec[0] == dec[1]
+    if not same:
+        raise AssertionError(f"K4 case {name} G={G}: shadows differ")
+    return err
+
+
+def _k4_compare(name, keys, aggs, vals, mask, seg, G, n, dense, grid=None):
+    """(max |kernel - plain| over ints, S) of K4 on one case's value
+    matrix: ints bit-equal, the same replay decision."""
+    V, fc, slotr = _k4_inputs(keys, aggs, vals, mask, dense)
+    return _k4_check(name, V, seg, G, n, fc, slotr, grid), V.shape[1]
+
+
+def _k4_log_plan(name: str, G: int, S: int, n_sh: int, extra: str) -> None:
+    from pg_strom_tpu_torch.ops.preagg_pallas import k4_plan
+    lp = k4_plan(G, S, n_sh)
+    _log(f"K4 case {name}: G={G} S={S} shadows={n_sh} block={lp.block} "
+         f"column_tiles={lp.ntiles} smem~{lp.smem} B: {extra}")
+
+
+def k4_exact_window(dev, log2n: int) -> int:
+    """K4 with every row in one bucket of G = 32 at digits 255 and -255
+    (and a float shadow) on a grid of 1 and 2 blocks: at full size one
+    block sums more rows than an s32 cell holds (2^23) and must flush it."""
+    import torch
+    n = _exact_window_rows(log2n)
+    row = torch.tensor([255.0, -255.0, 1.0, 0.5, 255.0], dtype=torch.bfloat16,
+                       device=dev)
+    V = row.expand(n, -1).contiguous()
+    seg = torch.full((n,), 3, dtype=torch.int32, device=dev)
+    worst = 0
+    for grid in (1, 2):
+        worst = max(worst, _k4_check("exact_window", V, seg, 32, n, [3],
+                                     None, grid))
+    _k4_log_plan("exact_window", 32, 5, 1, f"{n} rows in one bucket, digits "
+                 "+-255, grids 1 and 2: ints bit-equal to the plain version")
+    return worst
+
+
+def k4_nonfinite(dev, rng, n: int) -> int:
+    """K4 on a value matrix with inf, -inf, NaN and digits past [-255, 255]
+    in its integer columns (build_mxu_columns makes such cells for an inf
+    input): ints bit-equal to the plain version's saturating int64 sums."""
+    import numpy as np
+    import torch
+    S, G = 12, 40
+    V = rng.integers(-255, 256, (n, S)).astype(np.float32)
+    fc = [3, 9]
+    V[:, fc] = rng.random((n, 2)) * 100.0
+    V[rng.random(n) < 0.001, 9] = np.nan
+    V[rng.random(n) < 0.001, 3] = np.inf
+    icol = [c for c in range(S) if c not in fc]
+    for v in (np.inf, -np.inf, np.nan, 300.0, -1000.0):
+        hit = rng.random((n, len(icol))) < 0.0005
+        V[:, icol] = np.where(hit, v, V[:, icol])
+    Vt = torch.from_numpy(V).to(dev).to(torch.bfloat16)
+    seg = torch.from_numpy(rng.integers(0, G + 1, n).astype(np.int32)).to(dev)
+    err = _k4_check("nonfinite_ints", Vt, seg, G, n - 37, fc, None)
+    _k4_log_plan("nonfinite_ints", G, S, 2, f"{n - 37} rows, inf/NaN/+-1000 "
+                 "in integer cells: ints bit-equal to the plain version")
+    return err
 
 
 def _k2_shadows(plan) -> int:
@@ -564,15 +650,18 @@ def phase_kernels_k2k4(seed: int, log2n: int) -> int:
              f"replay={replay} ints bit-equal to the plain version")
         del case
     worst = max(worst, k2_exact_window(dev, log2n))
-    for name in ("agg_group", "two_hashed_int4"):
+    cases = [(f"{nm}_g{g}", nm, g) for nm in ("agg_group", "two_hashed_int4")
+             for g in (32, 2048)] + list(K4_EDGE_CASES)
+    for i, (name, data, G) in enumerate(cases):
         keys, aggs, vals, mask, seg, G, dense = _k2_case(
-            name, np.random.default_rng(seed + 7), N, dev)
-        for g in (32, 2048):
-            sg = torch.where(seg < G, seg % g, torch.full_like(seg, g))
-            err, S = _k4_compare(name, keys, aggs, vals, mask, sg, g, n, dense)
-            worst = max(worst, err)
-            _log(f"K4 case {name}: G={g} S={S} ints bit-equal to the plain "
-                 f"version")
+            data, np.random.default_rng(seed * 1000 + 300 + i), N, dev, G)
+        V, fc, slotr = _k4_inputs(keys, aggs, vals, mask, dense)
+        worst = max(worst, _k4_check(name, V, seg, G, n, fc, slotr))
+        _k4_log_plan(name, G, V.shape[1], len(fc), "ints bit-equal to the "
+                     "plain version, the same replay decision")
+        del V
+    worst = max(worst, k4_exact_window(dev, log2n))
+    worst = max(worst, k4_nonfinite(dev, np.random.default_rng(seed + 9), N))
     torch.cuda.empty_cache()
     return worst
 
@@ -989,6 +1078,7 @@ def phase_testdb(seed: int, log2n: int, gpu: str) -> dict:
         out["k2_launches"] = pf.fused_cuda.launches
         _log(f"t0: K2 launches {pf.fused_cuda.launches}")
         out["chunk"] = _time_k2_chunk(db, gpu)
+        out["k4"] = phase_k4_path(db, data, nchunks, gpu)
         # 4d runs inside this database so that t0 is built and uploaded once
         out["joins"] = phase_joins(db, seed, gpu)
     del db
@@ -1345,77 +1435,110 @@ def _time_k3_chunk(db, gpu: str) -> dict:
 # phase 4c: the K4 path (use_pallas_reduce, the fused kernel off)
 # ---------------------------------------------------------------------------
 
-def phase_k4(seed: int, log2n: int, gpu: str) -> dict:
+# G of K4's chunk timings: agg_group's warm 32 and cold 1024, 256, and
+# MAX_G = 2048 (two column tiles)
+K4_TIMED_G = (32, 256, 1024, 2048)
+
+
+def phase_k4_path(db, data, nchunks: int, gpu: str) -> dict:
+    """agg_group through build_mxu_columns + K4 on 4b's resident t0, cold
+    and 5 warm runs: K4 launched on every chunk of each run, K2 never,
+    rows equal to the K2 path's as PostgreSQL text; then K4 alone at the
+    chunk (_time_k4)."""
     import torch
     from pg_strom_tpu_torch import execute, override
-    from pg_strom_tpu_torch.exec.devcache import TCACHE
-    from pg_strom_tpu_torch.ops import preagg_pallas as pp
     from pg_strom_tpu_torch.ops import preagg_fused as pf
-    n = 1 << log2n
-    db, data = _t0_db(seed + 2, n)
+    from pg_strom_tpu_torch.ops import preagg_pallas as pp
     sql = T0_SQL["agg_group"]
-    with override(debug_force_tpupreagg=True):
-        k2_rows = execute(sql, db)
-    _check_t0("agg_group", k2_rows.rows, data)
+    k2 = execute(sql, db)
+    _check_t0("agg_group", k2.rows, data)
+    want = k2.formatted(-3)
     pp.pallas_cuda.launches = 0
-    before = pf.fused_cuda.launches
+    k2_before = pf.fused_cuda.launches
+    times, per_run = [], []
     with override(use_fused_preagg=False, use_pallas_reduce=True,
                   debug_force_tpupreagg=True):
-        k4_rows = execute(sql, db)
+        for run in range(6):                     # cold, then 5 warm
+            before = pp.pallas_cuda.launches
+            t = time.perf_counter()
+            rows = execute(sql, db)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            per_run.append(pp.pallas_cuda.launches - before)
+            if rows.formatted(-3) != want:
+                raise AssertionError(f"K4 path run {run}: rows differ from "
+                                     "the K2 path's")
     launches = pp.pallas_cuda.launches
-    if launches < 1 or pf.fused_cuda.launches != before:
-        raise AssertionError(f"K4 path: K4 launched {launches} times, K2 "
-                             f"{pf.fused_cuda.launches - before}")
-    if k4_rows.formatted(-3) != k2_rows.formatted(-3):
-        raise AssertionError("K4 path rows differ from the K2 path's")
-    _log(f"K4 path: agg_group over {n} rows, K4 launches {launches}, rows "
-         "equal to the K2 run's as PostgreSQL text")
-    res = _time_k4(db, gpu)
-    res["launches"] = launches
-    del db
-    TCACHE.clear()
-    torch.cuda.empty_cache()
-    return res
+    if min(per_run) < nchunks or pf.fused_cuda.launches != k2_before:
+        raise AssertionError(f"K4 path: K4 launches per run {per_run} over "
+                             f"{nchunks} chunks, K2 launched "
+                             f"{pf.fused_cuda.launches - k2_before} times")
+    warm = [t * 1e3 for t in times[1:]]
+    med = statistics.median(warm)
+    _log(f"t0 agg_group on the K4 path [{gpu}]: rows equal to the K2 path's "
+         f"as PostgreSQL text; cold {times[0] * 1e3:.3f} ms, warm median "
+         f"{med:.3f} ms of {[round(w, 3) for w in warm]} (K4 launches per "
+         f"run {per_run}, {launches} in all)")
+    return {"launches": launches, "cold_ms": times[0] * 1e3, "warm_ms": med,
+            "warm_all_ms": warm, "chunk": _time_k4(db, gpu)}
 
 
 def _time_k4(db, gpu: str) -> dict:
-    """K4 alone and its plain version on agg_group's value matrix."""
+    """K4 alone, its plain version (plain, kernel, kernel, plain),
+    index_add_ and mxu_reduce's default path (use_pallas_reduce off: what
+    a shape that K2 does not take runs) on the value matrix of the first
+    2^26-row agg_group chunk, at each G of K4_TIMED_G."""
+    import torch
+    from pg_strom_tpu_torch import override
     from pg_strom_tpu_torch.ops import preagg_pallas as pp
-    from pg_strom_tpu_torch.ops.preagg_mxu import (build_mxu_columns,
-                                                   mxu_recipes,
-                                                   mxu_shadow_cols)
-    keys, aggs, vals, mask, seg, n = _t0_chunk_lanes(db, 32)
-    V, _ = build_mxu_columns(keys, aggs, vals, mask, seg.shape[0],
-                             dense_key=True)
-    _, slotr, _ = mxu_recipes([k.t for k in keys], aggs,
-                              [tuple(v.t for v in vs) for vs in vals],
-                              dense_key=True)
-    fc = mxu_shadow_cols(slotr)
-    err, S = _k4_compare("t0 agg_group", keys, aggs, vals, mask, seg, 32, n,
-                         True)
-    seg = seg.contiguous()
-    p1 = _time(lambda: pp.pallas_reduce_reference(V, seg, 32, n, fc), 1)
-    k1 = _time(lambda: pp.pallas_cuda(V, seg, 32, n, fc), 10)
-    k2 = _time(lambda: pp.pallas_cuda(V, seg, 32, n, fc), 10)
-    p2 = _time(lambda: pp.pallas_reduce_reference(V, seg, 32, n, fc), 1)
+    from pg_strom_tpu_torch.ops.preagg_mxu import mxu_reduce
+    res = {}
+    keys, aggs, vals, mask, _, n = _t0_chunk_lanes(db, K4_TIMED_G[0])
+    V, fc, slotr = _k4_inputs(keys, aggs, vals, mask, True)
+    S = V.shape[1]
     # one PyTorch call computing the same sums: index_add_ of the int64
     # value matrix into G+1 rows (row G takes the dropped rows); the int64
     # conversion is timed apart
-    import torch
     conv = _time(lambda: V[:n].to(torch.int64), 3)
     V64 = V[:n].to(torch.int64)
-    seg64 = seg[:n].to(torch.int64)
-    lib = _time(lambda: torch.zeros(33, S, dtype=torch.int64,
-                                    device=V.device).index_add_(0, seg64,
-                                                                V64), 10)
-    del V64
-    b = _bound(_tensor_bytes([V, seg]) + 32 * S * 12, n * S)
-    _log(f"K4 at the agg_group value matrix ({n} rows, G=32, S={S}) "
-         f"[{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch "
-         f"{p1:.4f} / {p2:.4f} ms, index_add_ {lib:.4f} ms (+ {conv:.4f} ms "
-         f"int64 conversion), bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err, **b,
-            "library_ms": lib, "convert_ms": conv}
+    for G in K4_TIMED_G:
+        seg = _t0_chunk_lanes(db, G)[4].contiguous()
+        err = _k4_check(f"t0 chunk G={G}", V, seg, G, n, fc, slotr)
+
+        def kern():
+            return pp.pallas_cuda(V, seg, G, n, fc)
+
+        def plain():
+            return pp.pallas_reduce_reference(V, seg, G, n, fc)
+        p1 = _time(plain, 1)
+        k1, k2 = _time(kern, 10), _time(kern, 10)
+        p2 = _time(plain, 1)
+        seg64 = seg[:n].to(torch.int64)
+        lib = _time(lambda: torch.zeros(G + 1, S, dtype=torch.int64,
+                                        device=V.device).index_add_(
+                                            0, seg64, V64), 3)
+        with override(use_pallas_reduce=False):
+            dflt = _time(lambda: mxu_reduce(V, seg, G, n, fsum_cols=fc), 1)
+        b = _bound(n * (2 * S + 4) + G * S * 12, n * S)
+        lp = pp.k4_plan(G, S, len(fc))
+        res[G] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err,
+                  **b, "library_ms": lib, "convert_ms": conv,
+                  "mxu_reduce_default_ms": dflt,
+                  "kernel_all_ms": [k1, k2], "plain_all_ms": [p1, p2],
+                  "block": lp.block, "column_tiles": lp.ntiles,
+                  "smem": lp.smem}
+        _log(f"K4 at the agg_group chunk's value matrix ({n} rows, G={G}, "
+             f"S={S}), block {lp.block}, {lp.ntiles} column tile(s), "
+             f"{lp.smem} B shared memory [{gpu}]: kernel {k1:.4f} / "
+             f"{k2:.4f} ms, plain PyTorch {p1:.4f} / {p2:.4f} ms, "
+             f"index_add_ {lib:.4f} ms (+ {conv:.4f} ms int64 conversion), "
+             f"mxu_reduce without K4 {dflt:.4f} ms, "
+             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, share "
+             f"{b['bound_ms'] / min(k1, k2):.3f})")
+        del seg64
+    del V64, V
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1585,8 +1708,6 @@ def main(argv=None) -> int:
                     help="flagship table size (2^N rows; default 27)")
     ap.add_argument("--kernel-rows-log2", type=int, default=20,
                     help="rows of the kernel-vs-plain cases (default 20)")
-    ap.add_argument("--k4-rows-log2", type=int, default=24,
-                    help="t0 size of the K4 path (2^N rows; default 24)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1618,20 +1739,24 @@ def main(argv=None) -> int:
     for line in (kc.build_log or "").splitlines():
         if "ptxas" in line or line.startswith("=="):
             _log(f"  {line.strip()}")
-    _log_sass_atomics(kc.library_path())
+    sass = _log_sass_atomics(kc.library_path()).get("k4_kernel")
+    if sass is not None and (not sass.get("ATOMS.ADD")
+                             or sass.get("ATOMS.CAST.SPIN.64")):
+        raise AssertionError(f"K4's digit adds are not native 32-bit shared "
+                             f"adds: {sass}")
 
     err = phase_kernels(args.seed, args.kernel_rows_log2)
     err = max(err, phase_kernels_k2k4(args.seed, args.kernel_rows_log2))
     k3_err = phase_kernels_k3(args.seed, args.kernel_rows_log2)
     timing = phase_slice(args.seed, args.rows_log2, gpu)
     t0db = phase_testdb(args.seed, args.rows_log2, gpu)
-    k4 = phase_k4(args.seed, args.k4_rows_log2, gpu)
     phase_small(args.seed)
     _log(f"total {time.perf_counter() - t_start:.1f} s [{gpu}]")
 
     print(gpu, flush=True)
     chunk = t0db["chunk"]
     joins = t0db["joins"]
+    k4 = t0db["k4"]
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{
         "name": "preagg_fused2 (K1)",
@@ -1663,8 +1788,8 @@ def main(argv=None) -> int:
         "source": "pg_strom_tpu_torch/ops/cuda/preagg_pallas.cu",
         "replaces": "pg_strom_tpu/ops/preagg_pallas.py:46",
         "launches": k4["launches"],
-        "max_abs_err": max(err, k4["err"]),
-        **{c: k4[c] for c in cols},
+        "max_abs_err": max([err] + [c["err"] for c in k4["chunk"].values()]),
+        **{c: k4["chunk"][32][c] for c in cols},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,8 @@ gives way to its plain version.
 
   K1  preagg_fused2.cu    fused pre-aggregation over raw column planes
   K2  preagg_fused.cu     fused pre-aggregation over encoded lanes
-      onehot_accum.cuh    their accumulation core (32-bit shared adds)
   K4  preagg_pallas.cu    segmented column sums of a value matrix
+      onehot_accum.cuh    their accumulation core (32-bit shared adds)
   K3  mxu_lookup.cu       table lookup out[i] = table[idx[i]]
 """
 
@@ -132,8 +132,8 @@ def library() -> ctypes.CDLL:
                 c_int, ctypes.c_size_t, c_ptr]
             L.pgstrom_k4_launch.restype = c_int
             L.pgstrom_k4_launch.argtypes = [
-                c_ptr, c_ptr, c_ptr, c_ll, c_int, c_int, c_int, c_int,
-                c_ptr, c_ptr, c_int, c_int, c_int, ctypes.c_size_t, c_ptr]
+                c_ptr, c_ptr, c_ptr, c_ll, geo, c_ptr, c_ptr, c_int,
+                ctypes.c_size_t, c_ptr]
             L.pgstrom_k3_launch.restype = c_int
             L.pgstrom_k3_launch.argtypes = [
                 c_ptr, c_ptr, c_int, c_int, c_ll, c_ptr, c_int, c_int, c_ptr]

@@ -1,7 +1,8 @@
-// The accumulation core shared by K1 (preagg_fused2.cu) and K2
-// (preagg_fused.cu): per-bucket exact sums of per-row digit columns.
+// The accumulation core shared by K1 (preagg_fused2.cu), K2
+// (preagg_fused.cu) and K4 (preagg_pallas.cu): per-bucket exact sums of
+// per-row digit columns.
 //
-// A kernel supplies the addresses of its input lanes and a row decoder
+// K1 and K2 supply the addresses of their input lanes and a row decoder
 // `Dec` that reads them through a row accessor `a` (a.u8(i), a.u32(i),
 // a.u64(i): lane i's element of the row):
 //
@@ -12,15 +13,18 @@
 //        for the si-th float shadow column
 //
 // and `run` sums them with the launch geometry of the planner
-// (ops/launch_plan.py): every non-zero digit is a 32-bit shared-memory
-// atomic add (a native ATOMS.ADD on sm_90; the 64-bit and float adds are
-// compare-and-swap loops) into a block-private table [G][Kt] (Kt = all K
-// columns when they fit one block, else a column tile per blockIdx.y),
-// shadows into [G][n_sh] f32.  A block adds at most S32_ROWS = 2^23 rows
-// into the s32 cells before it flushes them into the int64 output
-// (255 * 2^23 < 2^31), and ends with one global atomic per non-zero cell.
-// The tile loop is uniform across a block (it depends on blockIdx only),
-// so the barriers inside it are safe.
+// (ops/launch_plan.py), one row per thread.  K4 reads a row-major value
+// matrix, for which one row per thread is the wrong walk; it writes its own
+// loop over the same tables (`tables`, `s32_flush`, `flush_shadow`) and
+// launches through `launch`.  Every non-zero digit is a 32-bit
+// shared-memory atomic add (a native ATOMS.ADD on sm_90; the 64-bit and
+// float adds are compare-and-swap loops) into a block-private table
+// [G][Kt] (Kt = all K columns when they fit one block, else a column tile
+// per blockIdx.y), shadows into [G][n_sh] f32.  A block adds at most
+// S32_ROWS = 2^23 rows into the s32 cells before it flushes them into the
+// int64 output (255 * 2^23 < 2^31), and ends with one global atomic per
+// non-zero cell.  The tile loop is uniform across a block (it depends on
+// blockIdx only), so the barriers inside it are safe.
 
 #pragma once
 
@@ -105,6 +109,16 @@ __device__ __forceinline__ void s32_flush(unsigned* s32, int G, int K, int Kt,
   }
 }
 
+// the block's s32 cells and shadow cells at the head of its shared memory,
+// zeroed (the caller's barrier publishes them)
+__device__ __forceinline__ void tables(const Geo& q, unsigned char* smem,
+                                       unsigned** s32, float** sSh) {
+  *s32 = reinterpret_cast<unsigned*>(smem);
+  *sSh = reinterpret_cast<float*>(smem + align16((size_t)q.G * q.Kt * 4));
+  for (int i = threadIdx.x; i < q.G * q.Kt; i += blockDim.x) (*s32)[i] = 0u;
+  for (int i = threadIdx.x; i < q.G * q.n_sh; i += blockDim.x) (*sSh)[i] = 0.f;
+}
+
 template <class Dec>
 __device__ __forceinline__ void run(const Dec& dec,
                                     const unsigned long long* lanes,
@@ -115,10 +129,9 @@ __device__ __forceinline__ void run(const Dec& dec,
   const int R = blockDim.x, t = threadIdx.x;
   const int G = q.G, K = q.K, Kt = q.Kt, nsh = q.n_sh;
   const int c0 = blockIdx.y * Kt, c1 = min(K, c0 + Kt);
-  unsigned* s32 = reinterpret_cast<unsigned*>(smem);
-  float* sSh = reinterpret_cast<float*>(smem + align16((size_t)G * Kt * 4));
-  for (int i = t; i < G * Kt; i += R) s32[i] = 0u;
-  for (int i = t; i < G * nsh; i += R) sSh[i] = 0.f;
+  unsigned* s32;
+  float* sSh;
+  tables(q, smem, &s32, &sSh);
   __syncthreads();
 
   int since = 0;

@@ -3,97 +3,253 @@
 // Replaces the TPU Pallas kernel pg_strom_tpu/ops/preagg_pallas.py _build
 // (one-hot(bucket)^T . V on the MXU, the half-fused reduce behind
 // preagg_mxu.mxu_reduce under config.use_pallas_reduce).  Contract: for a
-// bf16 matrix V [N, S] whose integer columns hold values in [-255, 255]
+// bf16 matrix V [N, K] whose integer columns hold values in [-255, 255]
 // and a bucket id per row (seg >= G drops the row),
 //
-//   ints   int64 [G, S]  exact per-bucket sums of the integer columns
-//   shadow float [G, S]  per-bucket float sums of the shadow columns
+//   ints   int64 [G, K]  exact per-bucket sums of the integer columns,
+//                        each cell converted as preagg_mxu.sat_int64 does
+//   shadow float [G, K]  per-bucket float sums of the shadow columns
 //                        (|v| replay guards; NaN and inf propagate)
 //
-// `kind[c]` says which columns are shadows.  The TPU's 2^16-row hi/lo
-// flush exists for f32 accumulation on the MXU; here sums are int64.
+// The TPU's 2^16-row hi/lo flush exists for f32 accumulation on the MXU;
+// here the sums are exact integers.
 //
-// What bounds it on an H100: it reads 2 S bytes a row plus the bucket id,
-// and every non-zero cell is one shared-memory atomic add, many of them on
-// the few hot rows of a small G.  The design keeps a block-private [G, Kt]
-// accumulator in shared memory (int64, plus float for shadows), walks the
-// rows with a grid-stride loop and flushes non-zero cells to global memory
-// with one atomic each.  When G * S cells do not fit the shared memory,
-// the columns are tiled: blockIdx.y picks a tile of Kt columns and each
-// tile re-reads the rows.  wgmma, TMA and warp-specialised reduction are
-// later work.
+// What bounds it on an H100: bytes.  It reads 2 K + 4 bytes a row (88 at
+// the agg_group shape, 5.9 GB a 2^26-row chunk: 1.76 ms at 3.35 TB/s) and
+// makes one shared-memory add per non-zero cell.  The design:
+//
+// * The accumulation core of K1 and K2 (onehot_accum.cuh): 32-bit cells in
+//   a block-private [G, Kt] table (native ATOMS.ADD; a 64-bit shared add
+//   is a compare-and-swap loop), a compact [G, n_sh] f32 table for the
+//   shadow columns only, the s32 flush every S32_ROWS rows a block adds,
+//   and the planner's launch (ops/launch_plan.py): G = 1024 x K = 42 is one
+//   column tile, so V is read once (a column tile reads every column).
+// * Wide reads: a warp takes 32 rows of a block tile, 8 at a time.  Eight
+//   rows of V are 16 K bytes from a 16-byte aligned start, so the lanes
+//   copy them as K 16-byte vectors (cp.async, into the warp's own
+//   double buffer in shared memory: the next 8 rows are in flight while
+//   the current 8 are added).
+// * Two columns a lane: lane l takes columns cg + 2 l and cg + 2 l + 1 of
+//   each staged row (cg walks the block's column tile 64 at a time), so
+//   the lanes of one add instruction sit on cells two apart in one bucket
+//   row, even at G = 32.  A row's bucket is the same for the
+//   whole warp, and a lane's columns, their kind and their cells do not
+//   change from row to row.  A step's reads all come before its adds (the
+//   compiler keeps shared reads and adds in program order), and no read
+//   is conditional (a conditional read is a branch, on which the lanes
+//   past the last column diverge).
+// * Shadow cells: a float shared add is a compare-and-swap loop, so the
+//   shadow columns are left out of the adds above; after each step the
+//   lanes add them from the staged rows, one lane a (row, shadow column).
+// * A cell whose value is no integer in [-255, 255] (an inf, or a digit
+//   past the range: build_mxu_columns makes them for an inf input, whose
+//   chunk host replay discards) stays out of the s32 table: its saturated
+//   int64 value goes straight into the output with a global 64-bit atomic,
+//   which wraps the same in any order.
+//
+// What is left (PERF.md): neither the copies nor the adds hold it back;
+// the per-element work between them (the float to int conversion, the
+// range and ownership tests) does, at about a third of the bound.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "onehot_accum.cuh"
 
 namespace {
 
-__global__ void k4_kernel(const __nv_bfloat16* __restrict__ V,
-                          const int* __restrict__ seg,
-                          const int* __restrict__ kind, long long nrows, int S,
-                          int G, int Kt, int has_shadow,
-                          unsigned long long* __restrict__ g_ints,
-                          float* __restrict__ g_shadow) {
-  extern __shared__ unsigned long long smem[];
-  const int c0 = blockIdx.y * Kt;
-  const int kt = min(Kt, S - c0);
-  const int cells = G * Kt;
-  unsigned long long* s_acc = smem;
-  float* s_sh = reinterpret_cast<float*>(smem + cells);
-  int* s_kind = reinterpret_cast<int*>(s_sh + (has_shadow ? cells : 0));
+constexpr int RG = 8;            // rows a warp stages at a time (16 K bytes)
+constexpr int MAX_BLOCK = 1024;  // the per-warp tables are sized for it
 
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) s_acc[i] = 0ull;
-  if (has_shadow)
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) s_sh[i] = 0.f;
-  for (int i = threadIdx.x; i < kt; i += blockDim.x) s_kind[i] = kind[c0 + i];
+// the kernel's own tables after the core (ops/preagg_pallas.py computes
+// the same): the shadow columns [n_sh] and column -> shadow index [K] (-1
+// for an integer column) as int32, then each warp's two staged RG-row
+// steps of V (for a block of MAX_BLOCK threads)
+__host__ __device__ inline int desc_len(int K, int nsh) { return nsh + K; }
+__host__ __device__ inline size_t table_bytes(int K, int nsh) {
+  return onehot::align16((size_t)desc_len(K, nsh) * 4) +
+         (size_t)(MAX_BLOCK / 32) * 2 * RG * K * 2;
+}
+
+// copy 16 bytes (`bytes` of them from global memory, the rest zeros)
+// into shared memory, asynchronously
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
+}
+
+struct K4Args {
+  const unsigned short* V;  // bf16 bits [nrows, K]
+  const int* seg;
+  const int* desc;          // the first two tables above
+  long long nrows;
+  unsigned long long* ints;
+  float* shadow;
+};
+
+// bf16 bits b (in the high half) of a column that is this lane's (an
+// integer column of the tile: `mine`) in a row of bucket g (-1: dropped):
+// an integer in [-255, 255] goes to its s32 cell; returns whether the
+// value is the rare other kind (see `put_rare`)
+__device__ __forceinline__ bool put(unsigned b, bool mine, int g,
+                                    unsigned* cell) {
+  const int d = (int)__uint_as_float(b);  // as sat_int64; NaN: 0
+  const bool digit = (unsigned)d + 255u <= 510u;
+  if (mine && g >= 0 && digit && d != 0) atomicAdd(cell, (unsigned)d);
+  return mine && g >= 0 && !digit;
+}
+
+// a value that put() left out (|v| >= 256 or inf): its saturated int64
+// value straight into the output
+__device__ __forceinline__ void put_rare(unsigned b, bool mine, int g,
+                                         unsigned long long* cell) {
+  const float v = __uint_as_float(b);
+  if (mine && g >= 0 && (unsigned)(int)v + 255u > 510u)
+    atomicAdd(cell, (unsigned long long)__float2ll_rz(v));  // saturating
+}
+
+__global__ void __launch_bounds__(MAX_BLOCK) k4_kernel(K4Args a,
+                                                       onehot::Geo q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = q.K, nsh = q.n_sh;
+  const int c0 = blockIdx.y * q.Kt, c1 = min(K, c0 + q.Kt);
+  unsigned* s32;
+  float* sSh;
+  onehot::tables(q, smem, &s32, &sSh);
+  int* shcol = reinterpret_cast<int*>(smem + onehot::core_bytes(q));
+  const int dl = desc_len(K, nsh);
+  for (int i = threadIdx.x; i < dl; i += blockDim.x) shcol[i] = a.desc[i];
+  const int* si = shcol + nsh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned short* buf = reinterpret_cast<unsigned short*>(
+      reinterpret_cast<unsigned char*>(shcol) +
+      onehot::align16((size_t)dl * 4) + (size_t)warp * 2 * RG * K * 2);
   __syncthreads();
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < nrows; r += stride) {
-    const int g = seg[r];
-    if ((unsigned)g >= (unsigned)G) continue;  // dropped row
-    const __nv_bfloat16* row = V + r * S + c0;
-    unsigned long long* arow = s_acc + (size_t)g * Kt;
-    float* srow = s_sh + (size_t)g * Kt;
-    for (int j = 0; j < kt; ++j) {
-      const float v = __bfloat162float(row[j]);
-      if (s_kind[j]) {
-        if (v != 0.f) atomicAdd(srow + j, v);  // NaN != 0: kept
-      } else {
-        const long long iv = (long long)v;  // integer in [-255, 255]
-        if (iv != 0) atomicAdd(arow + j, (unsigned long long)iv);
+  const long long nrows = a.nrows, step = (long long)gridDim.x * blockDim.x;
+  // stage step k (rows RG k .. RG k + RG of the warp's 32) of block tile t0
+  // into buffer b; vectors past the last row are zeros
+  auto stage = [&](long long t0, int k, int b) {
+    const long long e0 = (t0 + warp * 32 + k * RG) * K;
+    const long long left = nrows * K - e0;  // elements
+    const unsigned short* src = a.V + e0;
+    unsigned short* dst = buf + b * RG * K;
+    if (left >= RG * K) {
+      for (int i = lane; i < K; i += 32)
+        cp_async16(dst + 8 * i, src + 8 * i, 16);
+    } else {  // the last rows: vectors past them are zeros
+      for (int i = lane; i < K; i += 32) {
+        const long long l = left - 8LL * i;
+        const int bytes = l >= 8 ? 16 : l > 0 ? (int)l * 2 : 0;
+        cp_async16(dst + 8 * i, bytes ? src + 8 * i : a.V, bytes);
       }
     }
-  }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  auto bucket = [&](long long t0) {  // of the lane's row of the warp's 32
+    const long long r = t0 + warp * 32 + lane;
+    if (r >= nrows) return -1;
+    const int s = a.seg[r];
+    return (unsigned)s < (unsigned)q.G ? s : -1;
+  };
+  // an integer column of this block's tile
+  auto mine = [&](int col) { return col >= c0 && col < c1 && si[col] < 0; };
 
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * kt; i += blockDim.x) {
-    const int g = i / kt, j = i % kt;
-    const unsigned long long a = s_acc[g * Kt + j];
-    if (a) atomicAdd(g_ints + (size_t)g * S + c0 + j, a);
-    if (has_shadow) {
-      const float f = s_sh[g * Kt + j];
-      if (f != 0.f) atomicAdd(g_shadow + (size_t)g * S + c0 + j, f);
+  long long t0 = (long long)blockIdx.x * blockDim.x;  // block tile
+  int k = 0, b = 0, since = 0;
+  int gl = bucket(t0);
+  stage(t0, 0, 0);
+  while (t0 < nrows) {  // uniform across the block
+    const bool last = k == 32 / RG - 1;  // of the tile's steps
+    const long long nt0 = last ? t0 + step : t0;
+    int ngl = gl;
+    if (nt0 < nrows) {
+      stage(nt0, last ? 0 : k + 1, b ^ 1);
+      if (last) ngl = bucket(nt0);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);  // an empty group
     }
+    asm volatile("cp.async.wait_group 1;\n" ::);  // this step's copies
+    __syncwarp();
+    const unsigned short* rows = buf + b * RG * K;
+    for (int cg = c0 & ~1; cg < c1; cg += 64) {
+      const int c = cg + 2 * lane;  // even
+      const bool ma = mine(c), mb = mine(c + 1);
+      const bool ha = c < K, hb = c + 1 < K;
+      unsigned x[RG];  // the step's reads first, none conditional
+      int g[RG];
+#pragma unroll
+      for (int i = 0; i < RG; ++i) {
+        const unsigned short* row = rows + i * K + c;
+        unsigned lo = 0u, hi = 0u;
+        if (ha) lo = row[0];
+        if (hb) hi = row[1];
+        x[i] = lo | hi << 16;
+        g[i] = __shfl_sync(~0u, gl, k * RG + i);  // the same for the warp
+      }
+      bool rare = false;
+#pragma unroll
+      for (int i = 0; i < RG; ++i) {
+        unsigned* cell = s32 + max(g[i], 0) * q.Kt + (c - c0);
+        rare |= put(x[i] << 16, ma, g[i], cell);
+        rare |= put(x[i] & 0xFFFF0000u, mb, g[i], cell + 1);
+      }
+      if (__any_sync(~0u, rare)) {  // uniform, and rare
+        for (int i = 0; i < RG; ++i) {
+          unsigned long long* cell = a.ints + (size_t)max(g[i], 0) * K + c;
+          put_rare(x[i] << 16, ma, g[i], cell);
+          put_rare(x[i] & 0xFFFF0000u, mb, g[i], cell + 1);
+        }
+      }
+    }
+    // the shadow columns: lane (row i, shadow s) for i < RG
+    const int i = lane % RG;
+    const int gi = __shfl_sync(~0u, gl, k * RG + i);
+    for (int t = lane; t < RG * nsh; t += 32) {
+      const int s = t / RG, col = shcol[s];
+      const float x = __uint_as_float((unsigned)rows[i * K + col] << 16);
+      if (gi >= 0 && col >= c0 && col < c1 && x != 0.f)  // NaN kept
+        atomicAdd(sSh + gi * nsh + s, x);
+    }
+    __syncwarp();  // buffer b is restaged by the next step
+    if (last) {
+      if (++since == q.flush_tiles) {
+        __syncthreads();
+        onehot::s32_flush(s32, q.G, K, q.Kt, c0, c1, a.ints);
+        __syncthreads();
+        since = 0;
+      }
+    }
+    t0 = nt0;
+    k = last ? 0 : k + 1;
+    b ^= 1;
+    gl = ngl;
   }
+  __syncthreads();
+  onehot::s32_flush(s32, q.G, K, q.Kt, c0, c1, a.ints);
+  onehot::flush_shadow(q, sSh, shcol, c0, c1, a.shadow);
 }
 
 }  // namespace
 
-extern "C" int pgstrom_k4_launch(const void* V, const int* seg, const int* kind,
-                                 long long nrows, int S, int G, int Kt,
-                                 int has_shadow, unsigned long long* ints,
-                                 float* shadow, int grid_x, int grid_y,
-                                 int block, size_t smem, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      k4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  k4_kernel<<<dim3(grid_x, grid_y), block, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(V), seg, kind, nrows, S, G, Kt,
-      has_shadow, ints, shadow);
-  return (int)cudaGetLastError();
+// geo: the planner's int32 vector (onehot::Geo, K = the columns of V);
+// grid_x <= 0 fills the card; returns a cudaError_t, or
+// onehot::ERR_SMEM_PLAN
+extern "C" int pgstrom_k4_launch(const void* V, const int* seg,
+                                 const int* desc, long long nrows,
+                                 const int* geo, unsigned long long* ints,
+                                 float* shadow, int grid_x, size_t smem,
+                                 void* stream) {
+  const onehot::Geo q = onehot::Geo::load(geo);
+  if (q.block > MAX_BLOCK ||
+      smem < onehot::core_bytes(q) + table_bytes(q.K, q.n_sh))
+    return onehot::ERR_SMEM_PLAN;
+  const K4Args a{reinterpret_cast<const unsigned short*>(V), seg, desc, nrows,
+                 ints, shadow};
+  return onehot::launch(k4_kernel, a, q, nrows, grid_x, smem,
+                        (cudaStream_t)stream);
 }

@@ -1,4 +1,4 @@
-"""Launch planner of K1 and K2's shared accumulation core
+"""Launch planner of the accumulation core that K1, K2 and K4 share
 (ops/cuda/onehot_accum.cuh): what block, what column tiles, what shared
 memory.
 
@@ -11,7 +11,7 @@ Every row adds its non-zero digits into a block-private [G, Kt] table of
 table fits one block, else the widest column tile that does (one tile per
 blockIdx.y, each re-reading the lanes).  A block flushes its s32 cells into
 the int64 output every S32_ROWS rows it has added.  A shape whose single
-column does not fit one block is refused: K2 (G <= 2048) and K1
+column does not fit one block is refused: K2 and K4 (G <= 2048) and K1
 (G <= 4096) never come near it.
 """
 
@@ -53,8 +53,8 @@ class LaunchPlan:
 
 def plan_launch(G: int, K: int, n_shadow: int,
                 table_bytes: int) -> LaunchPlan:
-    """The launch of one K1/K2 call; `table_bytes` are the kernel's own
-    tables in shared memory."""
+    """The launch of one K1, K2 or K4 call; `table_bytes` are the kernel's
+    own tables in shared memory."""
     if G < 1 or K < 1:
         raise ValueError(f"nothing to accumulate: G={G}, K={K}")
     room = SMEM_MAX - table_bytes - _a16(4 * G * n_shadow) - 16

@@ -8,11 +8,20 @@ partial sums into int32 hi/lo pairs every 2^16 rows.  The port computes
 the contract directly (ops/cuda/preagg_pallas.cu): exact int64 sums of the
 integer columns, float32 sums of the shadow columns, per bucket.
 
+K4 is bound by the bytes of V (2 S + 4 a row).  It runs on K1 and K2's
+accumulation core: 32-bit shared cells in a [G, Kt] table and a compact
+shadow table, planned by ops/launch_plan.py (G = 1024 x S = 42 in one
+column tile, so V is read once).  A warp copies 8 rows of V at a time
+into shared memory as 16-byte vectors, and there a lane owns a column, so
+that one add instruction touches 32 neighbouring cells of the row's
+bucket.
+
 * `pallas_reduce` — the entry: a CUDA V launches the kernel (or raises), a
   CPU V runs the plain version.
 * `pallas_reduce_reference` — the plain PyTorch version, an index_add_
   over row blocks (a whole-V int64 copy would be 8 bytes per cell).
-* `MAX_G` = 2048 gates it, as in the reference (preagg_mxu.py:409).
+* `k4_plan` — the launch plan of one call; `MAX_G` = 2048 gates K4, as in
+  the reference (preagg_mxu.py:409).
 
 `sums` is zero at the shadow columns; `fsums` holds the shadow columns'
 sums, which only decide host replay (preagg_mxu.mxu_overflow).
@@ -22,12 +31,13 @@ from __future__ import annotations
 
 import torch
 
+from .launch_plan import _a16, plan_launch
 from .preagg_mxu import sat_int64
 
 MAX_G = 1 << 11
 _REF_ROWS = 1 << 20          # rows per block of the plain version
-_BLOCK = 256                 # threads per block, at least
-_SMEM_MAX = 227 * 1024       # an H100 block's shared memory (opt-in)
+_MAX_BLOCK = 1024            # threads a K4 block may have
+_RG = 8                      # rows a K4 warp stages at a time
 
 
 def _split(S: int, fsum_cols) -> tuple[list[int], list[int]]:
@@ -64,72 +74,72 @@ def pallas_reduce_reference(V: torch.Tensor, seg_id: torch.Tensor, G: int,
     return ints[:G], shadow[:G]
 
 
-def tile_columns(G: int, S: int, has_shadow: bool,
-                 extra: int = 0) -> tuple[int, int]:
-    """(Kt columns per tile, shared-memory bytes) for a block-private
-    [G, Kt] accumulator: all S columns when they fit, else the widest tile
-    that fits an H100 block's shared memory."""
-    cell = 8 + (4 if has_shadow else 0)
-    fit = (_SMEM_MAX - extra - 4 * S) // (G * cell)
-    if fit < 1:
-        raise ValueError(f"G={G} leaves no room for one column in shared "
-                         "memory")
-    Kt = min(S, fit)
-    return Kt, G * Kt * cell + extra + 4 * Kt
+def k4_table_bytes(S: int, n_shadow: int) -> int:
+    """Shared-memory bytes of K4's own tables after the core's (keep in
+    sync with table_bytes in ops/cuda/preagg_pallas.cu): the shadow columns
+    and the column -> shadow index map as int32, then each warp's two
+    staged _RG-row steps of V, for a block of _MAX_BLOCK threads."""
+    return _a16(4 * (n_shadow + S)) + _MAX_BLOCK // 32 * 2 * _RG * S * 2
 
 
-def launch_shape(dev: torch.device, n: int, smem: int,
-                 ntiles: int) -> tuple[int, int]:
-    """(blocks per column tile, threads per block) for a grid-stride
-    kernel with `smem` bytes of block-private accumulators: as many blocks
-    as fit an SM (at most 4), and threads so that each SM runs about 1024
-    of them — a block that fills the shared memory alone gets 1024 threads
-    (at G = 1024, K = 42 on an H100 that is 3.2x faster than 256)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = max(1, min(4, (_SMEM_MAX + 1024) // max(smem, 1)))
-    block = max(_BLOCK, 1024 // per_sm)
-    want = max(1, -(-sms * per_sm // ntiles))
-    return max(1, min(-(-n // block), want)), block
+def k4_plan(G: int, S: int, n_shadow: int):
+    """The accumulation core's launch plan of one K4 call."""
+    return plan_launch(G, S, n_shadow, k4_table_bytes(S, n_shadow))
+
+
+def _desc(S: int, fsum_cols) -> list[int]:
+    """The int32 tables the kernel loads: the shadow columns, then column
+    -> shadow index (-1 for an integer column)."""
+    si = [-1] * S
+    for i, c in enumerate(fsum_cols):
+        si[c] = i
+    return list(fsum_cols) + si
 
 
 def pallas_cuda(V: torch.Tensor, seg_id: torch.Tensor, G: int, n: int,
-                fsum_cols) -> tuple[torch.Tensor, torch.Tensor]:
+                fsum_cols, grid: int | None = None) -> tuple[torch.Tensor,
+                                                             torch.Tensor]:
     """Launch K4 (ops/cuda/preagg_pallas.cu): the same (ints, shadow) as
-    pallas_reduce_reference.  Raises on a bad input, a build or a launch
-    failure."""
+    pallas_reduce_reference.  `grid` forces the blocks per column tile (the
+    exactness-window tests); None fills the card.  Raises on a bad input, a
+    build or a launch failure."""
     import ctypes
     from .cuda import library, cuda_error_text
     dev = V.device
-    S = V.shape[1]
-    if (V.dtype != torch.bfloat16 or V.dim() != 2 or not V.is_contiguous()
+    S = V.shape[1] if V.dim() == 2 else 0
+    fsum_cols = list(fsum_cols)
+    if (dev.type != "cuda" or V.dtype != torch.bfloat16 or V.dim() != 2
+            or not V.is_contiguous() or V.data_ptr() % 16
             or seg_id.device != dev or seg_id.dtype != torch.int32
             or not seg_id.is_contiguous() or seg_id.shape[0] < n
-            or V.shape[0] < n or G > MAX_G):
-        raise ValueError(f"K4 needs a contiguous bf16 V [N, S] and int32 "
-                         f"bucket ids on one device, G <= {MAX_G}; got V "
-                         f"{V.dtype} {tuple(V.shape)} on {V.device}, seg "
-                         f"{seg_id.dtype} on {seg_id.device}, G={G}")
-    icols, scols = _split(S, fsum_cols)
-    kind = torch.zeros(S, dtype=torch.int32)
-    kind[scols] = 1
-    kind = kind.to(dev)
-    has_shadow = bool(scols)
-    Kt, smem = tile_columns(G, S, has_shadow)
-    ntiles = -(-S // Kt)
+            or V.shape[0] < n or not 1 <= G <= MAX_G or S < 1
+            or len(set(fsum_cols)) != len(fsum_cols)
+            or not all(0 <= c < S for c in fsum_cols)):
+        raise ValueError(f"K4 needs a contiguous, 16-byte aligned bf16 V "
+                         f"[N, S] and int32 bucket ids on one CUDA device, "
+                         f"1 <= G <= {MAX_G}, distinct shadow columns of V; "
+                         f"got V {V.dtype} {tuple(V.shape)} on {V.device} at "
+                         f"{V.data_ptr() % 16} mod 16, seg "
+                         f"{seg_id.dtype} on {seg_id.device}, G={G}, "
+                         f"shadows {fsum_cols}")
+    lp = k4_plan(G, S, len(fsum_cols))
+    desc = torch.tensor(_desc(S, fsum_cols), dtype=torch.int32).to(dev)
+    geo = (ctypes.c_int * len(lp.geo()))(*lp.geo())
     ints = torch.zeros((G, S), dtype=torch.int64, device=dev)
     shadow = torch.zeros((G, S), dtype=torch.float32, device=dev)
-    grid, block = launch_shape(dev, n, smem, ntiles)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pgstrom_k4_launch(
             ctypes.c_void_p(V.data_ptr()), ctypes.c_void_p(seg_id.data_ptr()),
-            ctypes.c_void_p(kind.data_ptr()), ctypes.c_longlong(n), S, G, Kt,
-            int(has_shadow), ctypes.c_void_p(ints.data_ptr()),
-            ctypes.c_void_p(shadow.data_ptr()), grid, ntiles, block,
-            ctypes.c_size_t(smem), ctypes.c_void_p(stream))
+            ctypes.c_void_p(desc.data_ptr()), ctypes.c_longlong(n), geo,
+            ctypes.c_void_p(ints.data_ptr()),
+            ctypes.c_void_p(shadow.data_ptr()), 0 if grid is None else grid,
+            ctypes.c_size_t(lp.smem), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K4 launch failed: {cuda_error_text(rc)}")
+        raise RuntimeError(f"K4 launch failed ({lp.ntiles} column tile(s), "
+                           f"{lp.smem} B shared memory): "
+                           f"{cuda_error_text(rc)}")
     pallas_cuda.launches += 1
     return ints, shadow
 

@@ -9,10 +9,11 @@ imports jax, hence --noconftest there):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 The cases are chip_smoke.py's kernel phase at 2^16 rows with a ragged
-live-row tail, K1 and K2 at the edges of their accumulation core's launch
-plan (ops/launch_plan.py: G not a multiple of 16, K = 114, column tiles),
-and the exactness windows at 2^24 rows on one and two blocks; `ints` must
-be bit-equal and the host-replay decision the same."""
+live-row tail, K1, K2 and K4 at the edges of their accumulation core's
+launch plan (ops/launch_plan.py: G not a multiple of 16, K = 114, column
+tiles), K4 with non-finite integer cells, and the exactness windows at
+2^24 rows on one and two blocks; `ints` must be bit-equal and the
+host-replay decision the same."""
 
 from __future__ import annotations
 
@@ -73,11 +74,12 @@ def test_k2_edge_matches_plain_version(cuda_device, name, data, G):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4"])
 def test_exactness_window(cuda_device, kernel):
     """2^24 + 3 rows in one bucket at digit 255 on one and two blocks: past
     the 2^23-row s32 flush of one block."""
-    window = cs.k1_exact_window if kernel == "K1" else cs.k2_exact_window
+    window = {"K1": cs.k1_exact_window, "K2": cs.k2_exact_window,
+              "K4": cs.k4_exact_window}[kernel]
     assert window(cuda_device, 20) == 0
 
 
@@ -103,6 +105,27 @@ def test_k4_matches_plain_version(cuda_device, name, G):
     err, _ = cs._k4_compare(name, keys, aggs, vals, mask, seg, G, n - 37,
                             dense)
     assert err == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,data,G", cs.K4_EDGE_CASES)
+def test_k4_edge_matches_plain_version(cuda_device, name, data, G):
+    """K4 at G = 40 (NaN and inf in the shadows), 256 and 1024 (one column
+    tile) and corr's wide value matrix in column tiles at G = 2048."""
+    n = 1 << 16
+    keys, aggs, vals, mask, seg, G, dense = cs._k2_case(
+        data, np.random.default_rng(10), n, cuda_device, G)
+    err, _ = cs._k4_compare(name, keys, aggs, vals, mask, seg, G, n - 37,
+                            dense)
+    assert err == 0
+
+
+@pytest.mark.gpu
+def test_k4_nonfinite_int_cells(cuda_device):
+    """inf, -inf, NaN and digits past [-255, 255] in integer columns: ints
+    bit-equal to pallas_reduce_reference's saturating int64 sums."""
+    assert cs.k4_nonfinite(cuda_device, np.random.default_rng(11),
+                           1 << 16) == 0
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
-"""The launch planner of K1 and K2's accumulation core
-(pg_strom_tpu_torch/ops/launch_plan.py) and the kernel build's cache key
+"""The launch planner of the accumulation core of K1, K2 and K4
+(pg_strom_tpu_torch/ops/launch_plan.py), K4's plan and tables
+(ops/preagg_pallas.py) and the kernel build's cache key
 (ops/cuda/__init__.py): pure Python, no GPU and no nvcc needed."""
 
 from __future__ import annotations
@@ -9,9 +10,11 @@ import re
 import shutil
 
 import pytest
+import torch
 
 from pg_strom_tpu_torch.ops import cuda as kc
 from pg_strom_tpu_torch.ops import launch_plan as lp
+from pg_strom_tpu_torch.ops import preagg_pallas as pp
 
 # every shape the main path and the kernel cases give the planner:
 # (G, K, shadow columns)
@@ -103,6 +106,63 @@ def test_geo_vector_matches_the_kernel_layout():
         assert geo[i] == getattr(p, names.get(nm, nm)), nm
     assert p.smem == (lp._a16(4 * p.G * p.Kt) + lp._a16(4 * p.G * p.n_shadow)
                       + TABLES)
+
+
+# K4 on agg_group's value matrix: S = 42 columns, two float shadows
+K4_S, K4_SH = 42, 2
+
+
+@pytest.mark.parametrize("G", [32, 1024, 2048])
+def test_k4_plan_on_the_agg_group_shape(G):
+    """K4's plan: the core's table and K4's own within a block's shared
+    memory, every column in a tile, an s32 cell flushed within S32_ROWS
+    rows, and as many blocks an SM as the plan's threads assume."""
+    p = pp.k4_plan(G, K4_S, K4_SH)
+    assert p.smem == (lp._a16(4 * G * p.Kt) + lp._a16(4 * G * K4_SH)
+                      + pp.k4_table_bytes(K4_S, K4_SH)) <= lp.SMEM_MAX
+    assert p.Kt * p.ntiles >= K4_S > p.Kt * (p.ntiles - 1)
+    assert 0 < p.flush_rows <= lp.S32_ROWS
+    assert p.block % 32 == 0 and 256 <= p.block <= 1024
+    per_sm = max(1, min(4, (lp.SMEM_MAX + 1024) // p.smem))
+    assert per_sm * (p.smem + 1024) <= 233472      # an H100 SM's 228 KB
+
+
+def test_k4_agg_group_cold_fits_one_tile():
+    """G = 1024 x S = 42 is one column tile: V is read once."""
+    p = pp.k4_plan(1024, K4_S, K4_SH)
+    assert (p.ntiles, p.Kt) == (1, K4_S)
+
+
+def test_k4_widest_g_takes_two_tiles_at_most():
+    assert pp.k4_plan(pp.MAX_G, K4_S, K4_SH).ntiles <= 2
+
+
+def test_k4_table_bytes_follow_the_kernel():
+    """k4_table_bytes mirrors table_bytes in preagg_pallas.cu: the same
+    step rows and block size, and a step of RG rows is a whole number of
+    16-byte vectors for any S."""
+    src = open(os.path.join(kc._DIR, "preagg_pallas.cu")).read()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["RG"]) == pp._RG and pp._RG % 8 == 0
+    assert int(consts["MAX_BLOCK"]) == pp._MAX_BLOCK
+    assert (pp.k4_table_bytes(K4_S, K4_SH)
+            == lp._a16(4 * (K4_S + K4_SH)) + 32 * 2 * pp._RG * K4_S * 2)
+
+
+def test_k4_desc_lists_and_maps_the_shadow_columns():
+    assert pp._desc(6, [4, 1]) == [4, 1, -1, 1, -1, -1, 0, -1]
+    assert pp._desc(3, []) == [-1, -1, -1]
+
+
+def test_k4_launcher_refuses_a_cpu_tensor():
+    """The launcher raises before it builds anything: only pallas_reduce
+    takes a CPU V, and then it runs the plain version."""
+    V = torch.zeros(64, 6, dtype=torch.bfloat16)
+    seg = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="K4 needs"):
+        pp.pallas_cuda(V, seg, 8, 64, [1])
+    ints, fsums = pp.pallas_reduce(V, seg, 8, 64, [1])
+    assert ints.shape == (8, 6) and fsums.shape == (8, 1)
 
 
 def test_library_path_keys_on_headers(tmp_path):
