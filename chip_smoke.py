@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (pg_strom_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--rows-log2 27] [--kernel-rows-log2 20]
+                          [--k4-parent DIR]
 
 Phases, in order; any failure raises, exits non-zero and prints no `ok`:
 
@@ -23,7 +24,8 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    255 on one and two blocks: past the 2^23-row s32 flush of one block);
    K4 over the value matrices of two of those cases at G = 32 and 2048
    and over K4_EDGE_CASES (G = 40 with NaN and inf in the shadows, 256,
-   1024, corr's wide matrix in column tiles at 2048), its exactness window
+   1024, corr's wide matrix in column tiles at 2048, twelve float8 sums'
+   255 columns at G = 1 and in column tiles at 2048), its exactness window
    and a matrix with inf, NaN and digits past [-255, 255] in integer
    columns: `ints` bit-equal and the same host-replay decision;
 3c. K3 against its plain version: 2^20 lookups at D in {100, 2048, 40960,
@@ -51,6 +53,8 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
 4c. the K4 path in 4b's database: agg_group with the fused kernel off
    and use_pallas_reduce on, cold and 5 warm runs: K4 launched on every
    chunk of each run, rows equal to the K2 path's as PostgreSQL text;
+   then K4 alone on a chunk's value matrix (with --k4-parent, beside the
+   K4 of another checkout, ints bit-equal for both);
 5. a 2^14-row table, a 2^14-row t0 with NULLs and NaN, and small join
    tables (inner, left, full, residual ON, a non-unique build, nloops, a
    post-join qual, fused and pregrouped aggregates) through the device
@@ -59,7 +63,8 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    its bound and, where one exists, the single PyTorch call computing
    the same function, at the main path's shapes; K1 at the flagship chunk,
    K2 at the agg_group chunk for G in K2_TIMED_G and K4 at that chunk's
-   value matrix for G in K4_TIMED_G, each with its launch plan), each
+   value matrix for G in K4_TIMED_G and at corr's value matrix of as many
+   rows at G = 2048, each with its launch plan), each
    beside the card's name and power limit; then the card line, the
    kernels' JSON line and, last, the `ok` line.
 """
@@ -90,8 +95,7 @@ def _log_sass_atomics(so: str) -> dict:
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        _log("SASS atomics: cuobjdump not found")
-        return {}
+        raise RuntimeError("SASS atomics: cuobjdump not found")
     r = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                        timeout=300)
     fn, found = None, collections.OrderedDict()
@@ -105,13 +109,14 @@ def _log_sass_atomics(so: str) -> dict:
         if m and fn is not None:
             found[fn][m.group(1)] += 1
     out = {}
-    for fn, ops in found.items():
+    for fn, ops in found.items():   # a template's instances: summed
         short = next((k for k in ("k1_kernel", "k2_kernel", "k3_kernel",
                                   "k4_kernel") if k in fn), fn)
-        out[short] = dict(ops)
+        out.setdefault(short, collections.Counter()).update(ops)
+    for short, ops in out.items():
         _log(f"SASS atomics {short}: "
              f"{dict(sorted(ops.items())) if ops else 'none'}")
-    return out
+    return {k: dict(v) for k, v in out.items()}
 
 
 def _gpu_line() -> str:
@@ -390,13 +395,16 @@ K2_EDGE_CASES = (("g40_nan_inf", "float4_nan_inf_null", 40),
                  ("g2048_corr_tiles", "corr_covar", 2048))
 
 
-# K4 at the edges of its launch plan: (name, K2_CASES data, G).  G = 40 is
+# K4 at the edges of its launch plan: (name, _k2_case data, G).  G = 40 is
 # no multiple of 16 (NaN and inf in the shadows), 256 and 1024 one column
-# tile each, corr's wide value matrix in column tiles at G = 2048
+# tile each, corr's wide value matrix in column tiles at G = 2048, and a
+# matrix wider than K2 takes (twelve float8 sums) at G = 1 and 2048
 K4_EDGE_CASES = (("g40_nan_inf", "float4_nan_inf_null", 40),
                  ("g256", "two_hashed_int4", 256),
                  ("g1024", "two_hashed_int4", 1024),
-                 ("g2048_corr_tiles", "corr_covar", 2048))
+                 ("g2048_corr_tiles", "corr_covar", 2048),
+                 ("g1_wide", "twelve_float8_sums", 1),
+                 ("g2048_wide_tiles", "twelve_float8_sums", 2048))
 
 
 def _dval(t, data, valid, dev):
@@ -487,6 +495,13 @@ def _k2_case_at(name: str, rng, N: int, dev):
         # sumsq_y), 114 columns, the widest plan K2 takes
         x, y = f8(10.0, 0.1), f8(-50.0, 0.1)
         aggs, vals = [_inst("corr", T.FLOAT8, T.FLOAT8)], [[x, y]]
+    elif name == "twelve_float8_sums":
+        # K4 only: a value matrix of 12 float8 sum blocks (12 shadows),
+        # wider than the 128 columns K2 takes
+        keys = [_dval(T.INT4, rng.integers(0, 50, N, dtype=np.int32),
+                      np.ones(N, np.bool_), dev)]
+        vals = [[f8(10.0 ** (i % 4), 0.1)] for i in range(12)]
+        aggs = [_inst("sum", T.FLOAT8) for _ in vals]
     else:                                            # all_null_group
         k = rng.integers(0, 20, N, dtype=np.int32)
         keys = [_dval(T.INT4, k, np.ones(N, np.bool_), dev)]
@@ -1015,7 +1030,8 @@ def _run_t0(db, name: str, force: bool = False):
     return rows, dict(pq.perfmon.counts), time.perf_counter() - t0
 
 
-def phase_testdb(seed: int, log2n: int, gpu: str) -> dict:
+def phase_testdb(seed: int, log2n: int, gpu: str,
+                 k4_parent: str | None = None) -> dict:
     """agg_group, rollup, filter and agg_nogrp over a 2^log2n-row t0."""
     import torch
     from pg_strom_tpu_torch import override
@@ -1078,7 +1094,7 @@ def phase_testdb(seed: int, log2n: int, gpu: str) -> dict:
         out["k2_launches"] = pf.fused_cuda.launches
         _log(f"t0: K2 launches {pf.fused_cuda.launches}")
         out["chunk"] = _time_k2_chunk(db, gpu)
-        out["k4"] = phase_k4_path(db, data, nchunks, gpu)
+        out["k4"] = phase_k4_path(db, data, nchunks, gpu, k4_parent)
         # 4d runs inside this database so that t0 is built and uploaded once
         out["joins"] = phase_joins(db, seed, gpu)
     del db
@@ -1440,11 +1456,71 @@ def _time_k3_chunk(db, gpu: str) -> dict:
 K4_TIMED_G = (32, 256, 1024, 2048)
 
 
-def phase_k4_path(db, data, nchunks: int, gpu: str) -> dict:
+def _k4_parent(root: str):
+    """pallas_cuda of another checkout's port (`root`, e.g. unpacked with
+    `git archive <commit> | tar -x -C root`), loaded beside this tree's
+    under a name of its own: its K4 builds from its own sources and is
+    called through its entry point (V, seg, G, n, fsum_cols) -> (ints,
+    shadow)."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "pg_strom_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "k4_parent_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("k4_parent_port.ops.preagg_pallas"
+                                   ).pallas_cuda
+
+
+def _time_k4_at(name, V, seg, G, n, fc, slotr, parent, gpu) -> dict:
+    """K4 and its plain version (plain, kernel, kernel, plain; with
+    `parent`: plain, parent, kernel, kernel, parent, plain) on one value
+    matrix, after requiring ints bit-equal to the plain version (the
+    parent's too) and the same replay decision."""
+    from pg_strom_tpu_torch.ops import preagg_pallas as pp
+    import torch
+    err = _k4_check(f"{name} G={G}", V, seg, G, n, fc, slotr)
+    if parent is not None and not torch.equal(
+            parent(V, seg, G, n, fc)[0],
+            pp.pallas_reduce_reference(V, seg, G, n, fc)[0]):
+        raise AssertionError(f"the parent's K4 at {name} G={G}: ints differ "
+                             "from the plain version")
+
+    def kern():
+        return pp.pallas_cuda(V, seg, G, n, fc)
+
+    def plain():
+        return pp.pallas_reduce_reference(V, seg, G, n, fc)
+    S = V.shape[1]
+    p1 = _time(plain, 1)
+    q1 = _time(lambda: parent(V, seg, G, n, fc), 10) if parent else None
+    k1, k2 = _time(kern, 10), _time(kern, 10)
+    q2 = _time(lambda: parent(V, seg, G, n, fc), 10) if parent else None
+    p2 = _time(plain, 1)
+    lp = pp.k4_plan(G, S, len(fc))
+    b = _bound(n * (2 * S + 4) + G * S * 12, n * S)
+    par = f", parent {q1:.4f} / {q2:.4f} ms" if parent else ""
+    _log(f"K4 at {name} ({n} rows, G={G}, S={S}, {len(fc)} shadows), block "
+         f"{lp.block}, {lp.ntiles} column tile(s), {lp.smem} B shared memory "
+         f"[{gpu}]: kernel {k1:.4f} / {k2:.4f} ms{par}, plain PyTorch "
+         f"{p1:.4f} / {p2:.4f} ms, bound {b['bound_ms']:.4f} ms "
+         f"({b['bound_by']}, share {b['bound_ms'] / min(k1, k2):.3f})")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err, **b,
+            "kernel_all_ms": [k1, k2], "plain_all_ms": [p1, p2],
+            "parent_all_ms": [q1, q2] if parent else None,
+            "block": lp.block, "column_tiles": lp.ntiles, "smem": lp.smem}
+
+
+def phase_k4_path(db, data, nchunks: int, gpu: str,
+                  parent_root: str | None = None) -> dict:
     """agg_group through build_mxu_columns + K4 on 4b's resident t0, cold
     and 5 warm runs: K4 launched on every chunk of each run, K2 never,
     rows equal to the K2 path's as PostgreSQL text; then K4 alone at the
-    chunk (_time_k4)."""
+    chunk (_time_k4), beside the K4 of the checkout at `parent_root` when
+    it is given."""
     import torch
     from pg_strom_tpu_torch import execute, override
     from pg_strom_tpu_torch.ops import preagg_fused as pf
@@ -1479,18 +1555,22 @@ def phase_k4_path(db, data, nchunks: int, gpu: str) -> dict:
          f"as PostgreSQL text; cold {times[0] * 1e3:.3f} ms, warm median "
          f"{med:.3f} ms of {[round(w, 3) for w in warm]} (K4 launches per "
          f"run {per_run}, {launches} in all)")
+    parent = _k4_parent(parent_root) if parent_root else None
+    chunk, corr = _time_k4(db, gpu, parent)
     return {"launches": launches, "cold_ms": times[0] * 1e3, "warm_ms": med,
-            "warm_all_ms": warm, "chunk": _time_k4(db, gpu)}
+            "warm_all_ms": warm, "chunk": chunk, "corr": corr}
 
 
-def _time_k4(db, gpu: str) -> dict:
-    """K4 alone, its plain version (plain, kernel, kernel, plain),
-    index_add_ and mxu_reduce's default path (use_pallas_reduce off: what
-    a shape that K2 does not take runs) on the value matrix of the first
-    2^26-row agg_group chunk, at each G of K4_TIMED_G."""
+def _time_k4(db, gpu: str, parent=None) -> tuple[dict, dict]:
+    """K4 alone and its plain version (_time_k4_at), index_add_ and
+    mxu_reduce's default path (use_pallas_reduce off: what a shape that K2
+    does not take runs) on the value matrix of the first 2^26-row
+    agg_group chunk, at each G of K4_TIMED_G; then K4 and its plain
+    version on corr's value matrix (int4 key hashed, S = 111, five
+    shadows) of as many rows at G = 2048, in column tiles."""
+    import numpy as np
     import torch
     from pg_strom_tpu_torch import override
-    from pg_strom_tpu_torch.ops import preagg_pallas as pp
     from pg_strom_tpu_torch.ops.preagg_mxu import mxu_reduce
     res = {}
     keys, aggs, vals, mask, _, n = _t0_chunk_lanes(db, K4_TIMED_G[0])
@@ -1503,42 +1583,32 @@ def _time_k4(db, gpu: str) -> dict:
     V64 = V[:n].to(torch.int64)
     for G in K4_TIMED_G:
         seg = _t0_chunk_lanes(db, G)[4].contiguous()
-        err = _k4_check(f"t0 chunk G={G}", V, seg, G, n, fc, slotr)
-
-        def kern():
-            return pp.pallas_cuda(V, seg, G, n, fc)
-
-        def plain():
-            return pp.pallas_reduce_reference(V, seg, G, n, fc)
-        p1 = _time(plain, 1)
-        k1, k2 = _time(kern, 10), _time(kern, 10)
-        p2 = _time(plain, 1)
+        res[G] = _time_k4_at("the agg_group chunk's value matrix", V, seg, G,
+                             n, fc, slotr, parent, gpu)
         seg64 = seg[:n].to(torch.int64)
         lib = _time(lambda: torch.zeros(G + 1, S, dtype=torch.int64,
                                         device=V.device).index_add_(
                                             0, seg64, V64), 3)
         with override(use_pallas_reduce=False):
             dflt = _time(lambda: mxu_reduce(V, seg, G, n, fsum_cols=fc), 1)
-        b = _bound(n * (2 * S + 4) + G * S * 12, n * S)
-        lp = pp.k4_plan(G, S, len(fc))
-        res[G] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": err,
-                  **b, "library_ms": lib, "convert_ms": conv,
-                  "mxu_reduce_default_ms": dflt,
-                  "kernel_all_ms": [k1, k2], "plain_all_ms": [p1, p2],
-                  "block": lp.block, "column_tiles": lp.ntiles,
-                  "smem": lp.smem}
-        _log(f"K4 at the agg_group chunk's value matrix ({n} rows, G={G}, "
-             f"S={S}), block {lp.block}, {lp.ntiles} column tile(s), "
-             f"{lp.smem} B shared memory [{gpu}]: kernel {k1:.4f} / "
-             f"{k2:.4f} ms, plain PyTorch {p1:.4f} / {p2:.4f} ms, "
+        res[G].update(library_ms=lib, convert_ms=conv,
+                      mxu_reduce_default_ms=dflt)
+        _log(f"K4 at the agg_group chunk's value matrix, G={G} [{gpu}]: "
              f"index_add_ {lib:.4f} ms (+ {conv:.4f} ms int64 conversion), "
-             f"mxu_reduce without K4 {dflt:.4f} ms, "
-             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, share "
-             f"{b['bound_ms'] / min(k1, k2):.3f})")
+             f"mxu_reduce without K4 {dflt:.4f} ms")
         del seg64
-    del V64, V
+    dev = V.device
+    del V64, V, keys, aggs, vals, mask
     torch.cuda.empty_cache()
-    return res
+    keys, aggs, vals, mask, seg, G, dense = _k2_case(
+        "corr_covar", np.random.default_rng(17), n, dev, 2048)
+    V, fc, slotr = _k4_inputs(keys, aggs, vals, mask, dense)
+    del keys, aggs, vals, mask
+    corr = _time_k4_at("corr's value matrix", V, seg, G, n, fc, slotr,
+                       parent, gpu)
+    del V, seg
+    torch.cuda.empty_cache()
+    return res, corr
 
 
 # ---------------------------------------------------------------------------
@@ -1708,6 +1778,10 @@ def main(argv=None) -> int:
                     help="flagship table size (2^N rows; default 27)")
     ap.add_argument("--kernel-rows-log2", type=int, default=20,
                     help="rows of the kernel-vs-plain cases (default 20)")
+    ap.add_argument("--k4-parent", metavar="DIR",
+                    help="another checkout of the repo whose K4 is timed "
+                         "beside this tree's in phase 4c (e.g. the parent "
+                         "commit, unpacked with git archive)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1740,8 +1814,9 @@ def main(argv=None) -> int:
         if "ptxas" in line or line.startswith("=="):
             _log(f"  {line.strip()}")
     sass = _log_sass_atomics(kc.library_path()).get("k4_kernel")
-    if sass is not None and (not sass.get("ATOMS.ADD")
-                             or sass.get("ATOMS.CAST.SPIN.64")):
+    if sass is None:
+        raise AssertionError("k4_kernel is missing from the library's SASS")
+    if not sass.get("ATOMS.ADD") or sass.get("ATOMS.CAST.SPIN.64"):
         raise AssertionError(f"K4's digit adds are not native 32-bit shared "
                              f"adds: {sass}")
 
@@ -1749,7 +1824,7 @@ def main(argv=None) -> int:
     err = max(err, phase_kernels_k2k4(args.seed, args.kernel_rows_log2))
     k3_err = phase_kernels_k3(args.seed, args.kernel_rows_log2)
     timing = phase_slice(args.seed, args.rows_log2, gpu)
-    t0db = phase_testdb(args.seed, args.rows_log2, gpu)
+    t0db = phase_testdb(args.seed, args.rows_log2, gpu, args.k4_parent)
     phase_small(args.seed)
     _log(f"total {time.perf_counter() - t_start:.1f} s [{gpu}]")
 
@@ -1788,7 +1863,8 @@ def main(argv=None) -> int:
         "source": "pg_strom_tpu_torch/ops/cuda/preagg_pallas.cu",
         "replaces": "pg_strom_tpu/ops/preagg_pallas.py:46",
         "launches": k4["launches"],
-        "max_abs_err": max([err] + [c["err"] for c in k4["chunk"].values()]),
+        "max_abs_err": max([err, k4["corr"]["err"]]
+                           + [c["err"] for c in k4["chunk"].values()]),
         **{c: k4["chunk"][32][c] for c in cols},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

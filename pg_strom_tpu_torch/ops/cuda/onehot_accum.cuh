@@ -162,8 +162,10 @@ __device__ __forceinline__ void run(const Dec& dec,
 // ---------------------------------------------------------------------------
 
 // kernel<<<(grid_x, column tiles), block, smem>>>(a, q); grid_x <= 0 asks
-// for as many blocks as the card holds at once (per column tile), capped by
-// the row tiles, a positive grid_x is taken as it is; returns a cudaError_t
+// for as many blocks as the card holds at once, shared among the column
+// tiles (rounded down: a block past one wave would run alone after it),
+// capped by the row tiles; a positive grid_x is taken as it is; returns a
+// cudaError_t
 template <class Kernel, class Args>
 inline int launch(Kernel kernel, const Args& a, const Geo& q, long long nrows,
                   int grid_x, size_t smem, cudaStream_t stream) {
@@ -180,7 +182,7 @@ inline int launch(Kernel kernel, const Args& a, const Geo& q, long long nrows,
              &occ, kernel, q.block, smem)) != cudaSuccess)
       return (int)e;
     if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-    const long long want = ((long long)occ * sms + q.ntiles - 1) / q.ntiles;
+    const long long want = (long long)occ * sms / q.ntiles;
     const long long rows = (nrows + q.block - 1) / q.block;
     grid_x = (int)(want < rows ? want : rows);
     if (grid_x < 1) grid_x = 1;

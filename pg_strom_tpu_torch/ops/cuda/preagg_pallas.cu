@@ -23,12 +23,20 @@
 //   is a compare-and-swap loop), a compact [G, n_sh] f32 table for the
 //   shadow columns only, the s32 flush every S32_ROWS rows a block adds,
 //   and the planner's launch (ops/launch_plan.py): G = 1024 x K = 42 is one
-//   column tile, so V is read once (a column tile reads every column).
-// * Wide reads: a warp takes 32 rows of a block tile, 8 at a time.  Eight
-//   rows of V are 16 K bytes from a 16-byte aligned start, so the lanes
-//   copy them as K 16-byte vectors (cp.async, into the warp's own
-//   double buffer in shared memory: the next 8 rows are in flight while
-//   the current 8 are added).
+//   column tile, so V is read once.
+// * Wide reads: a warp takes 32 rows of a block tile, 8 at a time, and
+//   copies them with 16-byte cp.async into its own double buffer in
+//   shared memory (the next 8 rows are in flight while the current 8 are
+//   added).  When the tile is every column, eight rows are one run of
+//   16 K bytes from a 16-byte aligned start: K vectors.  Otherwise each
+//   row's window of the tile's columns is copied as the vectors that
+//   cover it, at a row stride = K mod 8, so that row i's column c is at
+//   i stride + c in both layouts: a column tile reads its own columns
+//   only, and the staging grows with the tile (the planner sizes it), not
+//   with K.  Blocks are 1024 threads (K4_BLOCK in ops/preagg_pallas.py),
+//   faster than smaller blocks at every G timed.
+// * Column tiles of equal width, and a grid of one wave (onehot::launch),
+//   so that no SM idles while the blocks of a wider tile finish.
 // * Two columns a lane: lane l takes columns cg + 2 l and cg + 2 l + 1 of
 //   each staged row (cg walks the block's column tile 64 at a time), so
 //   the lanes of one add instruction sit on cells two apart in one bucket
@@ -49,7 +57,10 @@
 //
 // What is left (PERF.md): neither the copies nor the adds hold it back;
 // the per-element work between them (the float to int conversion, the
-// range and ownership tests) does, at about a third of the bound.
+// range and ownership tests) does, at about a third of the bound.  At
+// K = 42 only lanes 0-20 have columns, so each of those instructions does
+// 21 lanes' work out of 32; a walk that packs (row, column pair) onto the
+// lanes is untried.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false.
 
@@ -60,17 +71,28 @@
 
 namespace {
 
-constexpr int RG = 8;            // rows a warp stages at a time (16 K bytes)
-constexpr int MAX_BLOCK = 1024;  // the per-warp tables are sized for it
+constexpr int RG = 8;            // rows a warp stages at a time
+constexpr int MAX_BLOCK = 1024;
 
+// elements from one staged row to the next: K for whole rows; for windows
+// of Kt columns, room for the vectors that cover a window starting
+// anywhere in its first one (Kt + 14), rounded up to = K mod 8, so that
+// column c of row i sits at i stride + c in either layout (a window
+// vector starts at a multiple of 8 as its row's does in V)
+__host__ __device__ inline int row_stride(int K, int Kt) {
+  return Kt == K ? K : Kt + 14 + ((K - Kt - 14) & 7);
+}
+// elements of one staged RG-row step
+__host__ __device__ inline int step_elems(int K, int Kt) {
+  return RG * row_stride(K, Kt);
+}
 // the kernel's own tables after the core (ops/preagg_pallas.py computes
 // the same): the shadow columns [n_sh] and column -> shadow index [K] (-1
-// for an integer column) as int32, then each warp's two staged RG-row
-// steps of V (for a block of MAX_BLOCK threads)
+// for an integer column) as int32, then each warp's two staged steps
 __host__ __device__ inline int desc_len(int K, int nsh) { return nsh + K; }
-__host__ __device__ inline size_t table_bytes(int K, int nsh) {
-  return onehot::align16((size_t)desc_len(K, nsh) * 4) +
-         (size_t)(MAX_BLOCK / 32) * 2 * RG * K * 2;
+__host__ __device__ inline size_t table_bytes(const onehot::Geo& q) {
+  return onehot::align16((size_t)desc_len(q.K, q.n_sh) * 4) +
+         (size_t)(q.block / 32) * 2 * step_elems(q.K, q.Kt) * 2;
 }
 
 // copy 16 bytes (`bytes` of them from global memory, the rest zeros)
@@ -112,11 +134,15 @@ __device__ __forceinline__ void put_rare(unsigned b, bool mine, int g,
     atomicAdd(cell, (unsigned long long)__float2ll_rz(v));  // saturating
 }
 
+// kWhole: the tile is every column (Kt = K, c0 = 0) and rows are staged
+// whole; else each row's window of the tile
+template <bool kWhole>
 __global__ void __launch_bounds__(MAX_BLOCK) k4_kernel(K4Args a,
                                                        onehot::Geo q) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = q.K, nsh = q.n_sh;
-  const int c0 = blockIdx.y * q.Kt, c1 = min(K, c0 + q.Kt);
+  const int c0 = kWhole ? 0 : blockIdx.y * q.Kt;
+  const int c1 = kWhole ? K : min(K, c0 + q.Kt);
   unsigned* s32;
   float* sSh;
   onehot::tables(q, smem, &s32, &sSh);
@@ -125,27 +151,57 @@ __global__ void __launch_bounds__(MAX_BLOCK) k4_kernel(K4Args a,
   for (int i = threadIdx.x; i < dl; i += blockDim.x) shcol[i] = a.desc[i];
   const int* si = shcol + nsh;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int se = step_elems(K, q.Kt), stride = row_stride(K, q.Kt);
+  // A step's first row is a multiple of RG = 8, so row i's window starts
+  // (i K + c0) & 7 elements into its first vector at every step.  The
+  // staged row i, column c is at i stride + c0 % 8 + c - c0 (whole rows:
+  // i K + c).
+  const int kt = c1 - c0, wv = (kt + 14) / 8;  // vectors a window takes
+  // the staging copies of a lane: vector v of row i's window, i wv + v =
+  // lane + 32 j (a step of 32 is dq rows and dr vectors)
+  const int li = lane / wv, lv = lane % wv, dq = 32 / wv, dr = 32 % wv;
   unsigned short* buf = reinterpret_cast<unsigned short*>(
       reinterpret_cast<unsigned char*>(shcol) +
-      onehot::align16((size_t)dl * 4) + (size_t)warp * 2 * RG * K * 2);
+      onehot::align16((size_t)dl * 4) + (size_t)warp * 2 * se * 2);
   __syncthreads();
 
   const long long nrows = a.nrows, step = (long long)gridDim.x * blockDim.x;
-  // stage step k (rows RG k .. RG k + RG of the warp's 32) of block tile t0
-  // into buffer b; vectors past the last row are zeros
+  const long long nel = nrows * K;
+  // the first row of step k (rows RG k .. RG k + RG of the warp's 32) of
+  // block tile t0
+  auto row0 = [&](long long t0, int k) { return t0 + warp * 32 + k * RG; };
+
+  // copy vector index e / 8 of V (elements past the last row: zeros)
+  auto copy = [&](unsigned short* dst, long long e) {
+    const long long l = nel - e;
+    const int bytes = l >= 8 ? 16 : l > 0 ? (int)l * 2 : 0;
+    cp_async16(dst, bytes ? a.V + e : a.V, bytes);
+  };
+  // stage step k of block tile t0 into buffer b
   auto stage = [&](long long t0, int k, int b) {
-    const long long e0 = (t0 + warp * 32 + k * RG) * K;
-    const long long left = nrows * K - e0;  // elements
-    const unsigned short* src = a.V + e0;
-    unsigned short* dst = buf + b * RG * K;
-    if (left >= RG * K) {
-      for (int i = lane; i < K; i += 32)
-        cp_async16(dst + 8 * i, src + 8 * i, 16);
-    } else {  // the last rows: vectors past them are zeros
-      for (int i = lane; i < K; i += 32) {
-        const long long l = left - 8LL * i;
-        const int bytes = l >= 8 ? 16 : l > 0 ? (int)l * 2 : 0;
-        cp_async16(dst + 8 * i, bytes ? src + 8 * i : a.V, bytes);
+    const long long r0 = row0(t0, k);
+    unsigned short* dst = buf + b * se;
+    if (kWhole) {
+      const long long e0 = r0 * K;
+      if (nel - e0 >= RG * K) {
+        for (int v = lane; v < K; v += 32)
+          cp_async16(dst + 8 * v, a.V + e0 + 8 * v, 16);
+      } else {  // the last rows
+        for (int v = lane; v < K; v += 32) copy(dst + 8 * v, e0 + 8 * v);
+      }
+    } else {
+      const long long e0 = r0 * K;  // a multiple of 8
+      for (int i = li, v = lv; i < RG;) {
+        const int w = i * K + c0;  // row i's window starts at e0 + w
+        if (v < ((w & 7) + kt + 7) >> 3)
+          copy(dst + i * stride + (c0 & 7) - (w & 7) + 8 * v,
+               e0 + (w & ~7) + 8 * v);
+        i += dq;
+        v += dr;
+        if (v >= wv) {
+          v -= wv;
+          ++i;
+        }
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
@@ -175,16 +231,17 @@ __global__ void __launch_bounds__(MAX_BLOCK) k4_kernel(K4Args a,
     }
     asm volatile("cp.async.wait_group 1;\n" ::);  // this step's copies
     __syncwarp();
-    const unsigned short* rows = buf + b * RG * K;
+    // row i, column c at rows[i stride + c]
+    const unsigned short* rows = buf + b * se + (c0 & 7) - c0;
     for (int cg = c0 & ~1; cg < c1; cg += 64) {
       const int c = cg + 2 * lane;  // even
       const bool ma = mine(c), mb = mine(c + 1);
-      const bool ha = c < K, hb = c + 1 < K;
+      const bool ha = c >= c0 && c < c1, hb = c + 1 < c1;  // staged
       unsigned x[RG];  // the step's reads first, none conditional
       int g[RG];
 #pragma unroll
       for (int i = 0; i < RG; ++i) {
-        const unsigned short* row = rows + i * K + c;
+        const unsigned short* row = rows + i * stride + c;
         unsigned lo = 0u, hi = 0u;
         if (ha) lo = row[0];
         if (hb) hi = row[1];
@@ -206,14 +263,16 @@ __global__ void __launch_bounds__(MAX_BLOCK) k4_kernel(K4Args a,
         }
       }
     }
-    // the shadow columns: lane (row i, shadow s) for i < RG
+    // the shadow columns of the tile: lane (row i, shadow s) for i < RG
     const int i = lane % RG;
     const int gi = __shfl_sync(~0u, gl, k * RG + i);
+    const unsigned short* row = rows + i * stride;
     for (int t = lane; t < RG * nsh; t += 32) {
       const int s = t / RG, col = shcol[s];
-      const float x = __uint_as_float((unsigned)rows[i * K + col] << 16);
-      if (gi >= 0 && col >= c0 && col < c1 && x != 0.f)  // NaN kept
-        atomicAdd(sSh + gi * nsh + s, x);
+      if (gi >= 0 && col >= c0 && col < c1) {
+        const float x = __uint_as_float((unsigned)row[col] << 16);
+        if (x != 0.f) atomicAdd(sSh + gi * nsh + s, x);  // NaN kept
+      }
     }
     __syncwarp();  // buffer b is restaged by the next step
     if (last) {
@@ -245,11 +304,13 @@ extern "C" int pgstrom_k4_launch(const void* V, const int* seg,
                                  float* shadow, int grid_x, size_t smem,
                                  void* stream) {
   const onehot::Geo q = onehot::Geo::load(geo);
-  if (q.block > MAX_BLOCK ||
-      smem < onehot::core_bytes(q) + table_bytes(q.K, q.n_sh))
+  if (q.block > MAX_BLOCK || q.block % 32 ||
+      smem < onehot::core_bytes(q) + table_bytes(q))
     return onehot::ERR_SMEM_PLAN;
   const K4Args a{reinterpret_cast<const unsigned short*>(V), seg, desc, nrows,
                  ints, shadow};
-  return onehot::launch(k4_kernel, a, q, nrows, grid_x, smem,
-                        (cudaStream_t)stream);
+  return q.Kt == q.K ? onehot::launch(k4_kernel<true>, a, q, nrows, grid_x,
+                                      smem, (cudaStream_t)stream)
+                     : onehot::launch(k4_kernel<false>, a, q, nrows, grid_x,
+                                      smem, (cudaStream_t)stream);
 }

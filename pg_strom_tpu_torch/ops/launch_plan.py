@@ -9,10 +9,12 @@ every decision the CUDA wrappers take.
 Every row adds its non-zero digits into a block-private [G, Kt] table of
 32-bit cells in shared memory with native atomic adds: Kt = K when the
 table fits one block, else the widest column tile that does (one tile per
-blockIdx.y, each re-reading the lanes).  A block flushes its s32 cells into
-the int64 output every S32_ROWS rows it has added.  A shape whose single
-column does not fit one block is refused: K2 and K4 (G <= 2048) and K1
-(G <= 4096) never come near it.
+blockIdx.y, each re-reading the lanes; K4 re-reads only its tile's
+columns of V).  A block flushes its s32 cells into the int64 output every
+S32_ROWS rows it has added.  A shape whose single column does not fit one
+block is refused: K1 (G <= 4096) and K2 (G <= 2048) never come near it,
+K4 at G = 2048 only past 24 float shadow columns (the compact shadow table
+is in every tile).
 """
 
 from __future__ import annotations
@@ -51,24 +53,33 @@ class LaunchPlan:
         return self.flush_tiles * self.block
 
 
-def plan_launch(G: int, K: int, n_shadow: int,
-                table_bytes: int) -> LaunchPlan:
-    """The launch of one K1, K2 or K4 call; `table_bytes` are the kernel's
-    own tables in shared memory."""
+def plan_launch(G: int, K: int, n_shadow: int, table_bytes,
+                block: int | None = None) -> LaunchPlan:
+    """The launch of one K1, K2 or K4 call.  `table_bytes` are the kernel's
+    own tables in shared memory: a number (K1, K2), or a function of the
+    column tile's width Kt (K4's staged rows).  `block` fixes the threads
+    of a block (K4); None sizes it from the shared memory."""
     if G < 1 or K < 1:
         raise ValueError(f"nothing to accumulate: G={G}, K={K}")
-    room = SMEM_MAX - table_bytes - _a16(4 * G * n_shadow) - 16
-    Kt = min(K, room // (4 * G))
+    tb = table_bytes if callable(table_bytes) else (lambda Kt: table_bytes)
+    sh = _a16(4 * G * n_shadow)
+    # the widest column tile whose s32 cells fit beside the tables
+    Kt = next((kt for kt in range(min(K, (SMEM_MAX - sh) // (4 * G)), 0, -1)
+               if 4 * G * kt <= SMEM_MAX - tb(kt) - sh - 16), 0)
     if Kt < 1:
         raise ValueError(f"G={G} with {n_shadow} shadow columns leaves no "
                          "room for one column of s32 cells in a block's "
                          "shared memory")
-    smem = _a16(4 * G * Kt) + _a16(4 * G * n_shadow) + table_bytes
-    # as many blocks as fit an SM (at most 4), about 1024 threads an SM: a
-    # block that fills the shared memory alone gets 1024 threads (3.2x
-    # faster than 256 at G = 1024, K = 42; PERF.md)
-    per_sm = max(1, min(4, (SMEM_MAX + 1024) // smem))
-    block = max(256, 1024 // per_sm // 32 * 32)
+    # tiles of equal width: the blocks of a wide tile and a narrow one
+    # would finish apart, leaving SMs idle
+    Kt = -(-K // -(-K // Kt))
+    smem = _a16(4 * G * Kt) + sh + tb(Kt)
+    if block is None:
+        # as many blocks as fit an SM (at most 4), about 1024 threads an
+        # SM: a block that fills the shared memory alone gets 1024 threads
+        # (3.2x faster than 256 at G = 1024, K = 42; PERF.md)
+        per_sm = max(1, min(4, (SMEM_MAX + 1024) // smem))
+        block = max(256, 1024 // per_sm // 32 * 32)
     return LaunchPlan(G, K, n_shadow, block=block, smem=smem,
                       flush_tiles=S32_ROWS // block, Kt=Kt,
                       ntiles=-(-K // Kt))

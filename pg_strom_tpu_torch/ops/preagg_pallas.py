@@ -12,22 +12,27 @@ K4 is bound by the bytes of V (2 S + 4 a row).  It runs on K1 and K2's
 accumulation core: 32-bit shared cells in a [G, Kt] table and a compact
 shadow table, planned by ops/launch_plan.py (G = 1024 x S = 42 in one
 column tile, so V is read once).  A warp copies 8 rows of V at a time
-into shared memory as 16-byte vectors, and there a lane owns a column, so
-that one add instruction touches 32 neighbouring cells of the row's
-bucket.
+into shared memory as 16-byte vectors (whole rows when the tile is every
+column, else each row's window of the tile's columns, so that a column
+tile reads only its own columns and the staging grows with the tile, not
+with S), and there a lane owns two columns, so that one add instruction
+touches neighbouring cells of the row's bucket.
 
 * `pallas_reduce` — the entry: a CUDA V launches the kernel (or raises), a
   CPU V runs the plain version.
 * `pallas_reduce_reference` — the plain PyTorch version, an index_add_
   over row blocks (a whole-V int64 copy would be 8 bytes per cell).
 * `k4_plan` — the launch plan of one call; `MAX_G` = 2048 gates K4, as in
-  the reference (preagg_mxu.py:409).
+  the reference (preagg_mxu.py:409).  A shape whose shadow table leaves no
+  room for one column (past 24 shadows at G = 2048) raises.
 
 `sums` is zero at the shadow columns; `fsums` holds the shadow columns'
 sums, which only decide host replay (preagg_mxu.mxu_overflow).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -36,8 +41,11 @@ from .preagg_mxu import sat_int64
 
 MAX_G = 1 << 11
 _REF_ROWS = 1 << 20          # rows per block of the plain version
-_MAX_BLOCK = 1024            # threads a K4 block may have
 _RG = 8                      # rows a K4 warp stages at a time
+# threads of a K4 block: one block of 1024 an SM was faster than two of
+# 512 or four of 256 at every G timed on agg_group's and corr's value
+# matrices (PERF.md)
+K4_BLOCK = 1024
 
 
 def _split(S: int, fsum_cols) -> tuple[list[int], list[int]]:
@@ -74,17 +82,29 @@ def pallas_reduce_reference(V: torch.Tensor, seg_id: torch.Tensor, G: int,
     return ints[:G], shadow[:G]
 
 
-def k4_table_bytes(S: int, n_shadow: int) -> int:
+def _window_stride(S: int, Kt: int) -> int:
+    """Elements from one staged row's window of Kt columns to the next:
+    room for the 16-byte vectors that cover a window starting anywhere in
+    its first one, and = S mod 8, so that column c of row i sits at i
+    stride + c, as in whole rows (ops/cuda/preagg_pallas.cu)."""
+    return Kt + 14 + ((S - Kt - 14) & 7)
+
+
+def k4_table_bytes(S: int, n_shadow: int, block: int, Kt: int) -> int:
     """Shared-memory bytes of K4's own tables after the core's (keep in
     sync with table_bytes in ops/cuda/preagg_pallas.cu): the shadow columns
     and the column -> shadow index map as int32, then each warp's two
-    staged _RG-row steps of V, for a block of _MAX_BLOCK threads."""
-    return _a16(4 * (n_shadow + S)) + _MAX_BLOCK // 32 * 2 * _RG * S * 2
+    staged _RG-row steps of V: whole rows when Kt = S, else windows."""
+    step = _RG * (S if Kt == S else _window_stride(S, Kt))
+    return _a16(4 * (n_shadow + S)) + block // 32 * 2 * step * 2
 
 
+@functools.lru_cache(maxsize=256)
 def k4_plan(G: int, S: int, n_shadow: int):
-    """The accumulation core's launch plan of one K4 call."""
-    return plan_launch(G, S, n_shadow, k4_table_bytes(S, n_shadow))
+    """The accumulation core's launch plan of one K4 call, on blocks of
+    K4_BLOCK threads."""
+    return plan_launch(G, S, n_shadow, lambda Kt: k4_table_bytes(
+        S, n_shadow, K4_BLOCK, Kt), block=K4_BLOCK)
 
 
 def _desc(S: int, fsum_cols) -> list[int]:

@@ -11,9 +11,9 @@ imports jax, hence --noconftest there):
 The cases are chip_smoke.py's kernel phase at 2^16 rows with a ragged
 live-row tail, K1, K2 and K4 at the edges of their accumulation core's
 launch plan (ops/launch_plan.py: G not a multiple of 16, K = 114, column
-tiles), K4 with non-finite integer cells, and the exactness windows at
-2^24 rows on one and two blocks; `ints` must be bit-equal and the
-host-replay decision the same."""
+tiles, K4's S = 255), K4 with non-finite integer cells, and the
+exactness windows at 2^24 rows on one and two blocks; `ints` must be
+bit-equal and the host-replay decision the same."""
 
 from __future__ import annotations
 
@@ -111,7 +111,9 @@ def test_k4_matches_plain_version(cuda_device, name, G):
 @pytest.mark.parametrize("name,data,G", cs.K4_EDGE_CASES)
 def test_k4_edge_matches_plain_version(cuda_device, name, data, G):
     """K4 at G = 40 (NaN and inf in the shadows), 256 and 1024 (one column
-    tile) and corr's wide value matrix in column tiles at G = 2048."""
+    tile), corr's wide value matrix in column tiles at G = 2048, and
+    twelve float8 sums (S = 255, wider than K2 takes) at G = 1 and in
+    column tiles at G = 2048."""
     n = 1 << 16
     keys, aggs, vals, mask, seg, G, dense = cs._k2_case(
         data, np.random.default_rng(10), n, cuda_device, G)

@@ -119,7 +119,8 @@ def test_k4_plan_on_the_agg_group_shape(G):
     rows, and as many blocks an SM as the plan's threads assume."""
     p = pp.k4_plan(G, K4_S, K4_SH)
     assert p.smem == (lp._a16(4 * G * p.Kt) + lp._a16(4 * G * K4_SH)
-                      + pp.k4_table_bytes(K4_S, K4_SH)) <= lp.SMEM_MAX
+                      + pp.k4_table_bytes(K4_S, K4_SH, p.block, p.Kt)
+                      ) <= lp.SMEM_MAX
     assert p.Kt * p.ntiles >= K4_S > p.Kt * (p.ntiles - 1)
     assert 0 < p.flush_rows <= lp.S32_ROWS
     assert p.block % 32 == 0 and 256 <= p.block <= 1024
@@ -139,14 +140,85 @@ def test_k4_widest_g_takes_two_tiles_at_most():
 
 def test_k4_table_bytes_follow_the_kernel():
     """k4_table_bytes mirrors table_bytes in preagg_pallas.cu: the same
-    step rows and block size, and a step of RG rows is a whole number of
-    16-byte vectors for any S."""
+    step rows, whole rows when the tile is every column, else windows whose
+    stride is = S mod 8 and leaves room for the vectors of a window that
+    starts anywhere in its first one; two buffers a warp of the plan's
+    block, which the kernel's bound allows."""
     src = open(os.path.join(kc._DIR, "preagg_pallas.cu")).read()
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(consts["RG"]) == pp._RG and pp._RG % 8 == 0
-    assert int(consts["MAX_BLOCK"]) == pp._MAX_BLOCK
-    assert (pp.k4_table_bytes(K4_S, K4_SH)
+    assert "Kt == K ? K : Kt + 14 + ((K - Kt - 14) & 7)" in src
+    assert (pp.k4_table_bytes(K4_S, K4_SH, 1024, K4_S)
             == lp._a16(4 * (K4_S + K4_SH)) + 32 * 2 * pp._RG * K4_S * 2)
+    assert (pp.k4_table_bytes(K4_S, K4_SH, 256, 21)
+            == lp._a16(4 * (K4_S + K4_SH)) + 8 * 2 * pp._RG * 42 * 2)
+    for S in (5, 42, 111, 255):
+        for Kt in range(1, S):
+            st = pp._window_stride(S, Kt)
+            assert st % 8 == S % 8 and Kt + 14 <= st < Kt + 22
+    assert pp.K4_BLOCK <= int(consts["MAX_BLOCK"])
+
+
+@pytest.mark.parametrize("G", [1, 32, 256, 1024, 2048])
+def test_k4_blocks_take_1024_threads(G):
+    """One 1024-thread block an SM: faster than two of 512 or four of 256
+    at every G of agg_group's value matrix (PERF.md), so K4's plan fixes
+    it and sizes the staging for its 32 warps."""
+    p = pp.k4_plan(G, K4_S, K4_SH)
+    assert p.block == pp.K4_BLOCK == 1024
+    assert p.flush_rows == lp.S32_ROWS
+
+
+# twelve float8 sums: a value matrix of 240 columns with 12 shadows
+K4_WIDE_S, K4_WIDE_SH = 240, 12
+
+
+@pytest.mark.parametrize("G", [1, 32, 1024, 2048])
+def test_k4_plans_a_wide_value_matrix(G):
+    """K4 takes a value matrix far wider than K2's 128 columns at every G:
+    its staging grows with the column tile and the block, not with S."""
+    p = pp.k4_plan(G, K4_WIDE_S, K4_WIDE_SH)
+    assert p.smem <= lp.SMEM_MAX
+    assert p.Kt * p.ntiles >= K4_WIDE_S > p.Kt * (p.ntiles - 1)
+    assert p.smem == (lp._a16(4 * G * p.Kt) + lp._a16(4 * G * K4_WIDE_SH)
+                      + pp.k4_table_bytes(K4_WIDE_S, K4_WIDE_SH, p.block,
+                                          p.Kt))
+    assert pp.k4_plan(1, 1000, 50).smem <= lp.SMEM_MAX
+
+
+def _k4_row_bytes(p) -> int:
+    """Bytes of V a row costs the plan's column tiles at most: the 16-byte
+    vectors that cover each tile's window of the row."""
+    if p.ntiles == 1:
+        return 2 * p.K
+    widths = [min(p.Kt, p.K - t * p.Kt) for t in range(p.ntiles)]
+    # a window starting at any element of a vector: at most (kt + 14) // 8
+    assert all(-(-(off + kt) // 8) <= (kt + 14) // 8
+               for kt in widths for off in range(8))
+    return sum(16 * ((kt + 14) // 8) for kt in widths)
+
+
+@pytest.mark.parametrize("G,S,n_sh", [(2048, 114, 5), (2048, 42, 2),
+                                      (2048, 240, 12), (1, 240, 12)])
+def test_k4_tiles_stage_only_their_columns(G, S, n_sh):
+    """corr's value matrix (S = 114, five shadows) at G = 2048 and the
+    other tiled shapes: each column tile copies the vectors of its own
+    columns, so V costs at most twice its bytes (before the windows, 13
+    tiles each copied every column: 13x)."""
+    p = pp.k4_plan(G, S, n_sh)
+    assert p.ntiles > 1
+    assert _k4_row_bytes(p) <= 2 * (2 * S)
+    if (G, S) == (2048, 114):
+        assert p.ntiles <= 6
+
+
+def test_k4_refuses_a_shadow_table_past_its_room():
+    """At G = 2048 the compact shadow table (8 KB a shadow, in every tile)
+    leaves no room for one s32 column past 24 shadows (24 float8 sums,
+    20 columns each)."""
+    assert pp.k4_plan(2048, 20 * 24 + 1, 24).ntiles > 1
+    with pytest.raises(ValueError, match="no room"):
+        pp.k4_plan(2048, 20 * 25 + 1, 25)
 
 
 def test_k4_desc_lists_and_maps_the_shadow_columns():
