@@ -27,7 +27,10 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    1024, corr's wide matrix in column tiles at 2048, twelve float8 sums'
    255 columns at G = 1 and in column tiles at 2048), its exactness window
    and a matrix with inf, NaN and digits past [-255, 255] in integer
-   columns: `ints` bit-equal and the same host-replay decision;
+   columns: `ints` bit-equal and the same host-replay decision; then K4's
+   shape gate: mxu_reduce under use_pallas_reduce at G = 2048 with 25
+   float shadows (no K4 plan) takes the plain path, bit-equal, K4 not
+   launched, `k4_shape_routed` 1; with 24 shadows K4 launches;
 3c. K3 against its plain version: 2^20 lookups at D in {100, 2048, 40960,
    65536} and K in {1, 2, 4}, with the edge, padding and out-of-range
    indexes: bit-equal;
@@ -50,6 +53,16 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    sums to rel 1e-9 against numpy; a torch.profiler pass over 3 warm
    join_agg runs; K3 alone, its plain version and torch.take on a 2^26-row
    probe chunk;
+4e. in the same database, with t7(gid, v) added (each key twice): the
+   N-way star join+aggregate (TpuStarJoinAgg) star4way (identity probes),
+   star_k3 (a K3 probe of t6, grouped: K2) and star_fanout (two slices a
+   chunk), then ORDER BY ... LIMIT on each top-k route (sort: threshold,
+   sort_packed, sort_adaptive, sort_exact: ovf and the exact rerun), each
+   cold and 5 warm: every chunk on the device, none replayed, counts and
+   integer sums exact and float8 sums to rel 1e-9 against numpy, the
+   sorted rows equal to a stable numpy lexsort, K3 and K2 on every chunk
+   of star_k3, every route used; a torch.profiler pass over 3 warm
+   star_k3 runs;
 4c. the K4 path in 4b's database: agg_group with the fused kernel off
    and use_pallas_reduce on, cold and 5 warm runs: K4 launched on every
    chunk of each run, rows equal to the K2 path's as PostgreSQL text;
@@ -640,6 +653,53 @@ def k4_nonfinite(dev, rng, n: int) -> int:
     return err
 
 
+def k4_shape_gate(dev, n: int) -> None:
+    """mxu_reduce under use_pallas_reduce at G = 2048: with 25 float
+    shadows K4 cannot plan the shape (k4_fits), so the call takes the
+    plain path, bit-equal to the flag off, K4 launches no time and
+    `k4_shape_routed` counts 1; with 24 shadows K4 launches once."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.ops import preagg_pallas as pp
+    from pg_strom_tpu_torch.ops.preagg_mxu import mxu_reduce
+    from pg_strom_tpu_torch.utils.perfmon import Perfmon, active
+    G = 2048
+    g = torch.Generator(device=dev).manual_seed(2048)
+    for n_sh in (25, 24):
+        S = 20 * n_sh + 1
+        fc = list(range(0, S - 1, 20))
+        V = torch.randint(-255, 256, (n, S), device=dev, generator=g,
+                          dtype=torch.int32).to(torch.bfloat16)
+        V[:, fc] = (torch.rand(n, n_sh, device=dev, generator=g)
+                    * 1e4).to(torch.bfloat16)
+        seg = torch.randint(0, G + 1, (n,), device=dev, generator=g,
+                            dtype=torch.int32)
+        with override(use_pallas_reduce=False):
+            want = mxu_reduce(V, seg, G, n, fc)
+        pm = Perfmon()
+        before = pp.pallas_cuda.launches
+        with override(use_pallas_reduce=True), active(pm):
+            got = mxu_reduce(V, seg, G, n, fc)
+        torch.cuda.synchronize()
+        k4 = pp.pallas_cuda.launches - before
+        routed = pm.counts.get("k4_shape_routed", 0)
+        ints = [c for c in range(S) if c not in fc]
+        if not torch.equal(got[0][:, ints], want[0][:, ints]):
+            raise AssertionError(f"K4 gate, {n_sh} shadows: ints differ "
+                                 "from the plain path")
+        if n_sh == 25 and (k4 or routed != 1 or not torch.equal(got[1],
+                                                                 want[1])):
+            raise AssertionError(f"K4 gate, 25 shadows: K4 launched {k4}, "
+                                 f"k4_shape_routed {routed}")
+        if n_sh == 24 and (k4 != 1 or routed):
+            raise AssertionError(f"K4 gate, 24 shadows: K4 launched {k4}, "
+                                 f"k4_shape_routed {routed}")
+        _log(f"K4 gate: mxu_reduce with use_pallas_reduce, G={G} S={S} "
+             f"shadows={n_sh}, {n} rows: K4 launches {k4}, "
+             f"k4_shape_routed {routed}, ints bit-equal to the plain path")
+        del V, want, got
+
+
 def _k2_shadows(plan) -> int:
     return sum(op[0] in ("fabs", "f32") for op in plan.ops)
 
@@ -677,6 +737,7 @@ def phase_kernels_k2k4(seed: int, log2n: int) -> int:
         del V
     worst = max(worst, k4_exact_window(dev, log2n))
     worst = max(worst, k4_nonfinite(dev, np.random.default_rng(seed + 9), N))
+    k4_shape_gate(dev, min(N, 1 << 18))
     torch.cuda.empty_cache()
     return worst
 
@@ -1095,8 +1156,10 @@ def phase_testdb(seed: int, log2n: int, gpu: str,
         _log(f"t0: K2 launches {pf.fused_cuda.launches}")
         out["chunk"] = _time_k2_chunk(db, gpu)
         out["k4"] = phase_k4_path(db, data, nchunks, gpu, k4_parent)
-        # 4d runs inside this database so that t0 is built and uploaded once
+        # 4d and 4e run inside this database so that t0 is built and
+        # uploaded once
         out["joins"] = phase_joins(db, seed, gpu)
+        out["k2_launches"] += out["joins"]["star_sort"]["k2_launches"]
     del db
     TCACHE.clear()
     torch.cuda.empty_cache()
@@ -1282,16 +1345,7 @@ def _plan_on_host(node) -> bool:
 
 
 def _run_join(db, name: str, force: bool):
-    import torch
-    from pg_strom_tpu_torch import override
-    from pg_strom_tpu_torch.plan.planner import plan_query
-    from pg_strom_tpu_torch.sql import parser as ast
-    t0 = time.perf_counter()
-    with override(debug_force_offload=force):
-        pq = plan_query(ast.parse(JOIN_SQL[name]), db)
-        rows = pq.execute()
-    torch.cuda.synchronize()
-    return rows, dict(pq.perfmon.counts), time.perf_counter() - t0
+    return _run_q(db, JOIN_SQL[name], force)[:3]
 
 
 def phase_joins(db, seed: int, gpu: str) -> dict:
@@ -1358,40 +1412,295 @@ def phase_joins(db, seed: int, gpu: str) -> dict:
             text = "\n".join(r[0] for r in execute(
                 "EXPLAIN ANALYZE " + JOIN_SQL[name], db).rows)
         _log(f"join {name}, EXPLAIN ANALYZE [{gpu}]:\n{text}")
-    out["profile"] = _profile_join_agg(db, gpu)
+    out["profile"] = _profile("join_agg",
+                              lambda: _run_join(db, "join_agg", False), gpu)
     out["chunk"] = _time_k3_chunk(db, gpu)
-    for nm in ("t1", "t2", "t3", "t4", "t6"):
+    # 4e runs here, while t1..t3 and t6 are loaded
+    out["star_sort"] = phase_star_sort(db, seed, gpu, w_by_key)
+    out["k3_launches"] += out["star_sort"]["k3_launches"]
+    for nm in ("t1", "t2", "t3", "t4", "t6", "t7"):
         db.drop(nm)
     torch.cuda.empty_cache()
     return out
 
 
-def _profile_join_agg(db, gpu: str) -> dict:
-    """torch.profiler over 3 warm join_agg runs: device time by kernel
-    (CUDA kernel events only: an op's own entry repeats its kernels' time)
-    and the device's busy share of the runs' wall time."""
+def _profile(name: str, run, gpu: str) -> dict:
+    """torch.profiler over 3 warm runs of `run`: device time by kernel
+    (CUDA kernel events only: an op's own entry repeats its kernels' time),
+    the device's busy share of the runs' wall time, and the PyTorch op
+    that holds the most device time (its kernels' time included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
-    _run_join(db, "join_agg", False)
+    run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall0 = time.perf_counter()
         for _ in range(3):
-            _run_join(db, "join_agg", False)
+            run()
         wall = (time.perf_counter() - wall0) * 1e3
-    rows = []
+    rows, ops = [], []
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
             rows.append((ev.self_device_time_total / 1e3, ev.key, ev.count))
+        elif (ev.device_type == DeviceType.CPU and ev.key.startswith("aten::")
+              and ev.device_time_total):
+            ops.append((ev.device_time_total / 1e3, ev.key, ev.count))
     rows.sort(reverse=True)
+    ops.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    _log(f"join_agg profile, 3 warm runs [{gpu}]: wall {wall:.3f} ms, "
-         f"device kernels {busy:.3f} ms, busy share {busy / wall:.4f}")
+    top_op = ops[0] if ops else (0.0, "none", 0)
+    _log(f"{name} profile, 3 warm runs [{gpu}]: wall {wall:.3f} ms, "
+         f"device kernels {busy:.3f} ms, busy share {busy / wall:.4f}; the "
+         f"PyTorch op with the most device time: {top_op[1]} "
+         f"({top_op[0]:.3f} ms, {top_op[2]} calls)")
     for ms, key, cnt in rows[:12]:
         _log(f"  {ms:10.3f} ms  {cnt:5d}x  {key[:90]}")
-    return {"wall_ms": wall, "device_ms": busy,
+    return {"wall_ms": wall, "device_ms": busy, "top_op": top_op,
             "top": [(k[:90], ms, c) for ms, k, c in rows[:12]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the N-way star join+aggregate and ORDER BY ... LIMIT over t0
+# ---------------------------------------------------------------------------
+
+STAR_SQL = {
+    # the reference's manual benchmark shape (models/testdb.py:101): three
+    # serial-key dimensions, identity probes, ungrouped
+    "star4way": "select count(*), sum(t0.x), sum(t0.y) from t0, t1, t2, t3 "
+                "where t0.aid = t1.aid and t0.bid = t2.bid "
+                "and t0.cid = t3.cid",
+    # t6 is unique but not serial: its probe is K3; grouped by a text code
+    # (K2), a dimension-side predicate
+    "star_k3": "select t0.cat, count(*), sum(t0.x), sum(t6.w) "
+               "from t0, t6, t2, t3 where t0.aid = t6.fid "
+               "and t0.bid = t2.bid and t0.cid = t3.cid and t6.w > 0 "
+               "group by t0.cat order by t0.cat",
+    # t7 holds each key twice: the bounded-fanout probe, two slices a chunk
+    "star_fanout": "select count(*), sum(t0.x), sum(t7.v) from t0, t7, t2 "
+                   "where t0.did = t7.gid and t0.bid = t2.bid",
+}
+SORT_SQL = {
+    # models/testdb.py:104; 66 key bits: the threshold top-k
+    "sort": "select id, x from t0 order by x desc limit 100",
+    # 34 key bits + 26 row-id bits: the packed top-k
+    "sort_packed": "select id, aid from t0 order by aid limit 1000",
+    # k > 8192: the adaptive single word, which fits
+    "sort_adaptive": "select id, eid, aid from t0 order by eid, aid desc "
+                     "limit 20000",
+    # a float8 key and the id do not fit one word: ovf, the exact rerun
+    "sort_exact": "select id, x from t0 where y < 50.0 order by x, id "
+                  "limit 100000",
+}
+SORT_ROUTES = {"sort": {"threshold"}, "sort_packed": {"packed"},
+               "sort_adaptive": {"adaptive"},
+               "sort_exact": {"adaptive", "exact"}}
+
+
+def _add_t7(db, seed: int):
+    """t7(gid, v): each key of 1..DIM_ROWS twice, in a seeded order; returns
+    the sum of v by key."""
+    import numpy as np
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.datastore import Table, column_from_numpy as cn
+    rng = np.random.default_rng(seed + 70)
+    gid = rng.permutation(np.tile(np.arange(1, DIM_ROWS + 1,
+                                            dtype=np.int32), 2))
+    v = rng.integers(-(1 << 20), 1 << 20, 2 * DIM_ROWS, dtype=np.int32)
+    db.create(Table.from_columns("t7", {"gid": cn(T.INT4, gid),
+                                        "v": cn(T.INT4, v)}))
+    v_by_key = np.zeros(DIM_ROWS + 1, np.int64)
+    np.add.at(v_by_key, gid, v.astype(np.int64))
+    return v_by_key
+
+
+def _has_node(node, kind: str) -> bool:
+    return node.kind == kind or any(_has_node(c, kind)
+                                    for c in node.children)
+
+
+def _run_q(db, sql: str, force: bool):
+    """(rows, perfmon counts, seconds, plan root) of one query."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    t0 = time.perf_counter()
+    with override(debug_force_offload=force):
+        pq = plan_query(ast.parse(sql), db)
+        rows = pq.execute()
+    torch.cuda.synchronize()
+    return rows, dict(pq.perfmon.counts), time.perf_counter() - t0, pq.root
+
+
+def _exact_int_bincount(keys, vals, minlength: int):
+    """Per-key int64 sums of an int32 lane, exact: np.bincount's float64
+    weights over its 16-bit halves (each partial sum < 2^53)."""
+    import numpy as np
+    v = vals.astype(np.int64)
+    lo = np.bincount(keys, weights=v & 0xFFFF, minlength=minlength)
+    hi = np.bincount(keys, weights=v >> 16, minlength=minlength)
+    return np.rint(hi).astype(np.int64) * 65536 + np.rint(lo).astype(np.int64)
+
+
+def _star_expected(name: str, t0cols, w_by_key, v_by_key) -> list:
+    """The rows of a STAR_SQL query from numpy: counts and integer sums
+    exact, float8 sums as numpy adds them."""
+    import numpy as np
+    x, y = t0cols["x"], t0cols["y"]
+    if name == "star4way":
+        return [(len(x), float(x.sum()), float(y.sum()))]
+    if name == "star_k3":
+        cat, aid = t0cols["cat"], t0cols["aid"]
+        w = w_by_key[aid]
+        m = w > 0
+        cnt = np.bincount(cat[m], minlength=26)
+        sx = np.bincount(cat[m], weights=x[m], minlength=26)
+        sw = _exact_int_bincount(cat[m], w[m], 26)
+        return [(CATS[k], int(cnt[k]), float(sx[k]), int(sw[k]))
+                for k in range(26) if cnt[k]]
+    did = t0cols["did"]
+    return [(2 * len(x), 2 * float(x.sum()), int(v_by_key[did].sum()))]
+
+
+def _check_star(name: str, rows, want) -> None:
+    """Equal to the numpy rows: ints and text exactly, floats to rel
+    1e-9."""
+    same = len(rows) == len(want) and all(
+        len(g) == len(w) and all(
+            _close(a, b) if isinstance(b, float) else a == b
+            for a, b in zip(g, w))
+        for g, w in zip(rows, want))
+    if not same:
+        raise AssertionError(f"{name}: {rows[:4]} vs {want[:4]}")
+
+
+def _sort_expected(name: str, t0cols):
+    """The rows of a SORT_SQL query from numpy: a stable lexsort (ties by
+    ascending row id, as the packed row id breaks them) over the
+    candidates at or before the k-th key."""
+    import numpy as np
+    x, y = t0cols["x"], t0cols["y"]
+    aid, eid = t0cols["aid"], t0cols["eid"]
+    ids = np.arange(len(x), dtype=np.int64)
+
+    def first_k(key, k, rows=ids):
+        k = min(k, len(rows))
+        kth = np.partition(key[rows], k - 1)[k - 1]
+        cand = rows[key[rows] <= kth]
+        return cand[np.lexsort((cand, key[cand]))][:k]
+    if name == "sort":
+        sel = first_k(-x, 100)
+        return [(int(i) + 1, float(x[i])) for i in sel]
+    if name == "sort_packed":
+        sel = first_k(aid.astype(np.int64), 1000)
+        return [(int(i) + 1, int(aid[i])) for i in sel]
+    if name == "sort_adaptive":
+        key = eid.astype(np.int64) * (1 << 17) + (1 << 16) - aid
+        sel = first_k(key, 20000)
+        return [(int(i) + 1, int(eid[i]), int(aid[i])) for i in sel]
+    sel = first_k(x, 100000, np.flatnonzero(y < 50.0))
+    return [(int(i) + 1, float(x[i])) for i in sel]
+
+
+def _time_runs(db, sql, force, check, n_warm=5):
+    cold_rows, counts, cold, root = _run_q(db, sql, force)
+    check(cold_rows)
+    warm = []
+    for _ in range(n_warm):
+        rows, wcounts, dt, _ = _run_q(db, sql, force)
+        check(rows)
+        warm.append(dt)
+    return counts, wcounts, cold, warm, root
+
+
+def phase_star_sort(db, seed: int, gpu: str, w_by_key) -> dict:
+    """star4way, star_k3 and star_fanout, then the four ORDER BY ... LIMIT
+    routes, cold and 5 warm, over the resident t0 and its dimensions."""
+    from pg_strom_tpu_torch.exec.devcache import chunk_capacity
+    from pg_strom_tpu_torch.ops import mxu_lookup as ml
+    from pg_strom_tpu_torch.ops import preagg_fused as pf
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    v_by_key = _add_t7(db, seed)
+    t0 = db.get("t0")
+    t0cols = {c: t0.columns[c].data for c in
+              ("cat", "aid", "did", "eid", "x", "y")}
+    nchunks = -(-t0.nrows // chunk_capacity(t0.nrows))
+    out = {"timing": {}}
+    k3_start, k2_start = ml.mxu_lookup_cuda.launches, pf.fused_cuda.launches
+    for name, sql in STAR_SQL.items():
+        force = _plan_on_host(plan_query(ast.parse(sql), db).root)
+        if force:
+            _log(f"star {name}: the cost model keeps part of the query on "
+                 "the host; run it with debug_force_offload")
+        want = _star_expected(name, t0cols, w_by_key, v_by_key)
+        k3_0, k2_0 = ml.mxu_lookup_cuda.launches, pf.fused_cuda.launches
+        counts, wcounts, cold, warm, root = _time_runs(
+            db, sql, force, lambda r: _check_star(name, r, want))
+        k3 = ml.mxu_lookup_cuda.launches - k3_0
+        k2 = pf.fused_cuda.launches - k2_0
+        for c in (counts, wcounts):
+            if (c.get("device_chunks", 0) != nchunks
+                    or c.get("recheck_chunks", 0)
+                    or c.get("unported_host_exact", 0)):
+                raise AssertionError(f"star {name}: perfmon {c}, expected "
+                                     f"{nchunks} device chunks, no replay")
+        if not _has_node(root, "TpuStarJoinAgg"):
+            raise AssertionError(f"star {name}: no TpuStarJoinAgg node")
+        if name == "star_k3" and (k3 < 6 * nchunks or k2 < 6 * nchunks):
+            raise AssertionError(f"star_k3: K3 launched {k3}, K2 {k2} times "
+                                 f"over 6 runs of {nchunks} chunks")
+        med = statistics.median(warm)
+        out["timing"][name] = {"cold_ms": cold * 1e3, "forced": force,
+                               "warm_ms": med * 1e3,
+                               "warm_all_ms": [w * 1e3 for w in warm],
+                               "k3_launches": k3, "k2_launches": k2}
+        _log(f"star {name} [{gpu}]: exact vs numpy; cold {cold * 1e3:.3f} "
+             f"ms, warm median {med * 1e3:.3f} ms of "
+             f"{[round(w * 1e3, 3) for w in warm]} (6 runs: K3 launches "
+             f"{k3}, K2 launches {k2}; cold perfmon {counts})")
+    out["profile"] = _profile(
+        "star_k3", lambda: _run_q(db, STAR_SQL["star_k3"],
+                                  out["timing"]["star_k3"]["forced"]), gpu)
+    used = set()
+    for name, sql in SORT_SQL.items():
+        want = _sort_expected(name, t0cols)
+
+        def check(rows, name=name, want=want):
+            if [tuple(r) for r in rows] != want:
+                bad = next(i for i, (a, b) in enumerate(zip(rows, want))
+                           if tuple(a) != b) if len(rows) == len(want) \
+                    else min(len(rows), len(want))
+                raise AssertionError(f"{name}: {len(rows)} rows vs "
+                                     f"{len(want)}, first difference at "
+                                     f"{bad}")
+        counts, _, cold, warm, _ = _time_runs(db, sql, False, check)
+        routes = {k[len("topk_"):]: v for k, v in counts.items()
+                  if k.startswith("topk_")}
+        if set(routes) != SORT_ROUTES[name] or \
+                any(v != nchunks for v in routes.values()):
+            raise AssertionError(f"{name}: top-k routes {routes}, expected "
+                                 f"{SORT_ROUTES[name]} on each of "
+                                 f"{nchunks} chunks")
+        if counts.get("unported_host_exact", 0):
+            raise AssertionError(f"{name}: perfmon {counts}")
+        used |= set(routes)
+        med = statistics.median(warm)
+        out["timing"][name] = {"cold_ms": cold * 1e3, "warm_ms": med * 1e3,
+                               "warm_all_ms": [w * 1e3 for w in warm],
+                               "routes": routes}
+        _log(f"sort {name} [{gpu}]: {len(want)} rows exact vs a numpy "
+             f"lexsort; routes per chunk {routes}; cold {cold * 1e3:.3f} "
+             f"ms, warm median {med * 1e3:.3f} ms of "
+             f"{[round(w * 1e3, 3) for w in warm]}")
+    if used != {"packed", "threshold", "adaptive", "exact"}:
+        raise AssertionError(f"top-k routes used: {sorted(used)}")
+    out["k3_launches"] = ml.mxu_lookup_cuda.launches - k3_start
+    out["k2_launches"] = pf.fused_cuda.launches - k2_start
+    _log(f"phase 4e: K3 launches {out['k3_launches']}, K2 launches "
+         f"{out['k2_launches']}")
+    return out
 
 
 def _time_k3_chunk(db, gpu: str) -> dict:

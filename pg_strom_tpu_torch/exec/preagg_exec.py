@@ -454,15 +454,19 @@ def extract_with_dicts(aggs, agg_dicts):
 
 
 def absorb_preagg_out(out, group_exprs, aggs, key_metas, states, displays,
-                      pm, agg_dicts: list | None = None) -> None:
+                      pm, agg_dicts: list | None = None,
+                      whole_chunk: bool = True) -> None:
     """Merge one fetched preagg output (scatter / sort / ungrouped) into
-    the host (states, displays) accumulators."""
+    the host (states, displays) accumulators.  `whole_chunk`: the output
+    answers its chunk, which counts as a device chunk (a star join's
+    slice is a part of one; its executor counts the chunk)."""
     with pm.timer("materialize"):
         gmask = np.asarray(out["gmask"])
         keys = [tuple(np.asarray(p) for p in kp) for kp in out["keys"]]
         slots = [{k: np.asarray(v) for k, v in d.items()}
                  for d in out["slots"]]
-    pm.bump("device_chunks")
+    if whole_chunk:
+        pm.bump("device_chunks")
     pm.add_bytes("d2h", sum(a.nbytes for d in slots for a in d.values()))
     groups = np.flatnonzero(gmask) if group_exprs else np.array([0])
     for g in groups:

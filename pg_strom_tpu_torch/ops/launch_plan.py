@@ -53,6 +53,18 @@ class LaunchPlan:
         return self.flush_tiles * self.block
 
 
+def widest_tile(G: int, K: int, n_shadow: int, table_bytes) -> int:
+    """The widest column tile whose s32 cells fit one block's shared memory
+    beside the shadow table and the kernel's own tables; 0 when not even
+    one column does (or there is nothing to accumulate)."""
+    if G < 1 or K < 1:
+        return 0
+    tb = table_bytes if callable(table_bytes) else (lambda Kt: table_bytes)
+    sh = _a16(4 * G * n_shadow)
+    return next((kt for kt in range(min(K, (SMEM_MAX - sh) // (4 * G)), 0, -1)
+                 if 4 * G * kt <= SMEM_MAX - tb(kt) - sh - 16), 0)
+
+
 def plan_launch(G: int, K: int, n_shadow: int, table_bytes,
                 block: int | None = None) -> LaunchPlan:
     """The launch of one K1, K2 or K4 call.  `table_bytes` are the kernel's
@@ -63,9 +75,7 @@ def plan_launch(G: int, K: int, n_shadow: int, table_bytes,
         raise ValueError(f"nothing to accumulate: G={G}, K={K}")
     tb = table_bytes if callable(table_bytes) else (lambda Kt: table_bytes)
     sh = _a16(4 * G * n_shadow)
-    # the widest column tile whose s32 cells fit beside the tables
-    Kt = next((kt for kt in range(min(K, (SMEM_MAX - sh) // (4 * G)), 0, -1)
-               if 4 * G * kt <= SMEM_MAX - tb(kt) - sh - 16), 0)
+    Kt = widest_tile(G, K, n_shadow, tb)
     if Kt < 1:
         raise ValueError(f"G={G} with {n_shadow} shadow columns leaves no "
                          "room for one column of s32 cells in a block's "

@@ -380,16 +380,20 @@ def mxu_reduce(V: torch.Tensor, seg_id: torch.Tensor, G: int, n: int,
 
     The plain path (both devices) is an int64 index_add_ over SEG_ROWS row
     blocks, so no int64 copy of the whole V is ever made.  Under
-    config.use_pallas_reduce, with G <= MAX_G, K4 computes it
-    (ops/preagg_pallas.py)."""
+    config.use_pallas_reduce, with G <= MAX_G and a shape K4 plans
+    (k4_fits), K4 computes it (ops/preagg_pallas.py); a shape it cannot
+    plan takes the plain path and counts `k4_shape_routed`."""
     S = V.shape[1]
     explicit_shadow = fsum_cols is not None
     if fsum_cols is None:
         fsum_cols = list(range(S))
     from ..config import config as _cfg
-    from .preagg_pallas import pallas_reduce, MAX_G
+    from .preagg_pallas import pallas_reduce, k4_fits, MAX_G
     if _cfg.use_pallas_reduce and explicit_shadow and G <= MAX_G:
-        return pallas_reduce(V, seg_id, G, n, list(fsum_cols))
+        if k4_fits(G, S, len(fsum_cols)):
+            return pallas_reduce(V, seg_id, G, n, list(fsum_cols))
+        from ..utils.perfmon import bump_active
+        bump_active("k4_shape_routed")
     dev = V.device
     seg = seg_id.to(torch.int64).clamp(0, G)
     fsel = torch.as_tensor(list(fsum_cols), dtype=torch.int64, device=dev)

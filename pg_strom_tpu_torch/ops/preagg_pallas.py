@@ -24,7 +24,9 @@ touches neighbouring cells of the row's bucket.
   over row blocks (a whole-V int64 copy would be 8 bytes per cell).
 * `k4_plan` — the launch plan of one call; `MAX_G` = 2048 gates K4, as in
   the reference (preagg_mxu.py:409).  A shape whose shadow table leaves no
-  room for one column (past 24 shadows at G = 2048) raises.
+  room for one column (past 24 shadows at G = 2048) raises; `k4_fits`
+  tells it from the shape first, so that mxu_reduce routes such a call to
+  its own path instead.
 
 `sums` is zero at the shadow columns; `fsums` holds the shadow columns'
 sums, which only decide host replay (preagg_mxu.mxu_overflow).
@@ -36,7 +38,7 @@ import functools
 
 import torch
 
-from .launch_plan import _a16, plan_launch
+from .launch_plan import _a16, plan_launch, widest_tile
 from .preagg_mxu import sat_int64
 
 MAX_G = 1 << 11
@@ -105,6 +107,13 @@ def k4_plan(G: int, S: int, n_shadow: int):
     K4_BLOCK threads."""
     return plan_launch(G, S, n_shadow, lambda Kt: k4_table_bytes(
         S, n_shadow, K4_BLOCK, Kt), block=K4_BLOCK)
+
+
+def k4_fits(G: int, S: int, n_shadow: int) -> bool:
+    """Whether k4_plan plans this shape: one column of s32 cells fits a
+    block beside the shadow table (the condition k4_plan refuses on)."""
+    return widest_tile(G, S, n_shadow, lambda Kt: k4_table_bytes(
+        S, n_shadow, K4_BLOCK, Kt)) >= 1
 
 
 def _desc(S: int, fsum_cols) -> list[int]:

@@ -30,7 +30,7 @@ from ..expr.ir import (
 from ..expr.catalog import device_expression_supported
 from ..expr.eval_cpu import eval_expr_cpu
 from ..ops.preagg import AggInstance, lookup_agg
-from ..utils.perfmon import Perfmon
+from ..utils.perfmon import Perfmon, active as perfmon_active
 from ..pgops import cmp_values
 from ..exec.join_exec import HashJoinExecutor
 from ..exec.scan_exec import ScanExecutor
@@ -162,7 +162,8 @@ class PlannedQuery:
     perfmon: Perfmon
 
     def execute(self) -> list[tuple]:
-        return self._run()
+        with perfmon_active(self.perfmon):
+            return self._run()
 
     def explain(self, verbose: bool = False, costs: bool = False) -> str:
         return "\n".join(self.root.render(0, verbose, costs))
@@ -406,10 +407,13 @@ def plan_select(stmt: ast.SelectStmt, db: Database) -> PlannedQuery:
                                        group_exprs, items, having,
                                        order_specs, perfmon)
         elif has_aggs and len(rels) >= 3 and join_equis and not post_join \
-                and not has_outer and dec["agg"] and all(dec["join"].values()) \
-                and _star_shape(rels, join_equis):
-            # the reference's N-way fused star join+agg (TpuStarJoinAgg)
-            _unported("star join+aggregate (TpuStarJoinAgg)", "Star joins")
+                and not has_outer and dec["agg"] and all(dec["join"].values()):
+            # N-way fused star join+agg: one device node for the whole
+            # fact x dims chain (no intermediate host Tables); ineligible
+            # shapes fall through to the pairwise join loop below
+            rows = _try_star_join_agg(tables, rels, per_rel, join_equis,
+                                      group_exprs, items, having,
+                                      order_specs, perfmon)
         if rows is not None:
             if stmt.distinct:
                 rows = _dedupe_rows(rows)
@@ -794,13 +798,7 @@ def _try_fused_join_agg(tables, rels, per_rel, join_equis, group_exprs,
     if not keys_l:
         return None
     aggrefs = _collect_aggrefs(items, having)
-    insts = []
-    for ag in aggrefs:
-        d, fam = lookup_agg(ag.aggname, tuple(a.type for a in ag.args),
-                            star=ag.star)
-        insts.append(AggInstance(aggname=ag.aggname, family=fam,
-                                 slots=d.slots, args=tuple(ag.args),
-                                 distinct=ag.distinct))
+    insts = _agg_instances(aggrefs)
     from ..exec.joinagg_exec import JoinPreAggExecutor
     ex = JoinPreAggExecutor(
         tables[a0], tables[a1], keys_l, keys_r, group_exprs, insts,
@@ -811,6 +809,55 @@ def _try_fused_join_agg(tables, rels, per_rel, join_equis, group_exprs,
         return None
     raw = ex.run()
     return _finish_agg(raw, group_exprs, aggrefs, items, having, order_specs)
+
+
+def _try_star_join_agg(tables, rels, per_rel, join_equis, group_exprs,
+                       items, having, order_specs, perfmon):
+    """N-way fused star join+aggregate (exec/starjoin_exec.py): every join
+    equi-clause keys a later relation in FROM order by exactly one earlier
+    one (the fact, or an earlier dimension: a snowflake chain).  Returns
+    finished rows, or None to fall back to the pairwise HashJoin chain
+    (non-star equi pattern, non-dense snowflake parent, fan-out past the
+    slice cap, build-side recheck)."""
+    dim_keys = _star_dims(rels, join_equis)
+    if dim_keys is None:
+        return None
+    a0 = rels[0][0]
+    order = [a for a, _ in rels]
+    aggrefs = _collect_aggrefs(items, having)
+    insts = _agg_instances(aggrefs)
+    from ..exec.starjoin_exec import StarJoinAggExecutor, StarFallback, \
+        DimSpec
+    dims = [DimSpec(table=tables[alias],
+                    probe_keys=dim_keys[alias][0],
+                    build_keys=dim_keys[alias][1],
+                    build_pred=(and_all(per_rel[alias])
+                                if per_rel[alias] else None),
+                    src=(None if dim_keys[alias][2] == a0
+                         else order.index(dim_keys[alias][2]) - 1))
+            for alias, _ in rels[1:]]
+    ex = StarJoinAggExecutor(
+        tables[a0], dims, group_exprs, insts,
+        probe_pred=and_all(per_rel[a0]) if per_rel[a0] else None,
+        perfmon=perfmon)
+    try:
+        raw = ex.run()
+    except StarFallback:
+        return None
+    return _finish_agg(raw, group_exprs, aggrefs, items, having, order_specs)
+
+
+def _agg_instances(aggrefs) -> list[AggInstance]:
+    """The aggregate instances of a join's aggregates (args unbound: the
+    join executors bind them to their joined layout)."""
+    insts = []
+    for ag in aggrefs:
+        d, fam = lookup_agg(ag.aggname, tuple(a.type for a in ag.args),
+                            star=ag.star)
+        insts.append(AggInstance(aggname=ag.aggname, family=fam,
+                                 slots=d.slots, args=tuple(ag.args),
+                                 distinct=ag.distinct))
+    return insts
 
 
 def _collect_aggrefs(items, having) -> list[Aggref]:
@@ -1022,9 +1069,16 @@ def _column_values_at(c: Column, ii) -> list:
 
 def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
                perfmon) -> Optional[list[tuple]]:
-    """Device ORDER BY + LIMIT (the reference's packed-sort top-k).  Not
-    ported: raises where the reference would take the device route,
-    returns None (host path) where it would not."""
+    """Device ORDER BY + LIMIT: per-chunk packed sort -> k candidates with
+    their encoded key lanes -> host lexicographic merge -> materialize only
+    the k winning rows.  Returns None when not device-eligible (caller runs
+    the host path)."""
+    import numpy as np
+    from ..exec.devcache import TCACHE, chunk_capacity, device, fetch_host
+    from ..expr.lower_torch import schema_from_chunk_columns
+    from ..ops.sort import build_sort_topk_fn, SortSpec
+    from ..utils.devprog import tiered_capacity
+
     if not (config.enabled and config.enable_tpusort):
         return None
     exprs = [oe for oe, _, _ in borders] + ([bpred] if bpred is not None else [])
@@ -1032,7 +1086,83 @@ def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
         return None
     if cur.nrows == 0:
         return []
-    _unported("device ORDER BY ... LIMIT (top-k)", "Sort")
+    if config.distributed:
+        # the reference shards the rows over the mesh (_topk_rows_dist)
+        _unported("distributed ORDER BY ... LIMIT (top-k)", "Distributed")
+
+    names = cur.column_names
+    schema = schema_from_chunk_columns(names, [cur.columns[n] for n in names])
+    cap = tiered_capacity(chunk_capacity(cur.nrows), device(), perfmon)
+    specs = [SortSpec(oe, d, nf) for oe, d, nf in borders]
+    fn = build_sort_topk_fn(schema, specs, bpred, min(k, cap))
+
+    pending = []
+    streamed = 0
+    results = []
+
+    def drain():
+        if not pending:
+            return
+        with perfmon.timer("device_wait"):
+            results.extend(zip([cc for cc, _ in pending],
+                               fetch_host([r for _, r in pending])))
+        pending.clear()
+
+    for cc in TCACHE.chunks_for(cur, names, cap, perfmon):
+        if cc.recheck_any:
+            return None                # mixed host/device merge: host path
+        with perfmon.timer("dispatch"):
+            res = perfmon.device_call("tpusort_topk", fn, cc.planes,
+                                      cc.nrows)
+        pending.append((cc, res))
+        if cc.streamed:
+            streamed += 1
+            if streamed >= config.max_async_chunks:
+                drain()
+                streamed = 0
+    drain()
+
+    def exact_rerun(cc):
+        """Prefix-tie overflow (threshold route) or a key set the adaptive
+        word cannot hold: re-run this chunk with the exact full sort (the
+        host-driven retry, the DataStoreNoSpace analog)."""
+        efn = build_sort_topk_fn(schema, specs, bpred, min(k, cap),
+                                 exact=True)
+        with perfmon.timer("dispatch"):
+            r = perfmon.device_call("tpusort_topk", efn, cc.planes, cc.nrows)
+        with perfmon.timer("device_wait"):
+            return fetch_host(r)
+
+    lanes_all: list = []
+    gids_all: list = []
+    nqual_total = 0
+    nlanes = None
+    for cc, (top, tops, nqual, err, ovf) in results:
+        if bool(ovf):
+            top, tops, nqual, err, ovf = exact_rerun(cc)
+        if int(err) != 0:
+            return None                # exactness escape: host path
+        nqual_total += int(nqual)
+        gids_all.append(np.asarray(top, dtype=np.int64) + cc.start)
+        nlanes = len(tops)
+        lanes_all.append(np.stack([np.asarray(t) for t in tops]))
+    take = min(k, nqual_total)
+    if take == 0:
+        return []
+    lanes = np.concatenate(lanes_all, axis=1)      # [nlanes, ncand]
+    gids = np.concatenate(gids_all)
+    # primary = lane 0 (dead bit), ..., last lane, then the global row for
+    # the stable host sort's tie order; np.lexsort keys: last = primary
+    order = np.lexsort(tuple([gids] + [lanes[i]
+                                       for i in range(nlanes - 1, -1, -1)]))
+    sel = gids[order[:take]]
+    cols = list(cur.columns.values())
+    out = []
+    for gid in sel:
+        i = int(gid)
+        row = lambda s: cols[s].get(i)
+        out.append(tuple(eval_expr_cpu(e, row) for e in bitems))
+    return out
 
 
 def _order_and_strip(rows: list[tuple], orders) -> list[tuple]:
@@ -1195,25 +1325,42 @@ def _plan_table_less(stmt, db, perfmon) -> PlannedQuery:
                         run, node, perfmon)
 
 
-def _star_shape(rels, join_equis) -> bool:
-    """True when every equi clause keys a later-listed relation by exactly
-    one earlier relation (classic star AND snowflake chains, round 3) —
-    the fused N-way device chain shape (exec/starjoin_exec.py)."""
+def _star_dims(rels, join_equis) -> Optional[dict]:
+    """{inner alias: (probe key exprs over its source relation, build key
+    exprs, source alias)} when every equi clause keys a later-listed
+    relation by exactly one earlier relation (classic star AND snowflake
+    chains) — the fused N-way device chain shape (exec/starjoin_exec.py);
+    None otherwise."""
     if len(rels) < 3 or not join_equis:
-        return False
+        return None
     order = [a for a, _ in rels]
     pos = {a: i for i, a in enumerate(order)}
-    srcs: dict[str, set] = {a: set() for a in order[1:]}
+    keys: dict[str, tuple[list, list, set]] = \
+        {a: ([], [], set()) for a in order[1:]}
     for cj in join_equis:
         s0 = cj.args[0].name.split(".", 1)[0]
         s1 = cj.args[1].name.split(".", 1)[0]
         if s0 == s1 or s0 not in pos or s1 not in pos:
-            return False
+            return None
+        # the LATER rel in FROM order is the inner being keyed
         inner, outer = (s0, s1) if pos[s0] > pos[s1] else (s1, s0)
         if inner == order[0]:
-            return False
-        srcs[inner].add(outer)
-    return all(len(s) == 1 for s in srcs.values())
+            return None
+        src_expr, in_expr = ((cj.args[1], cj.args[0]) if inner == s0
+                             else (cj.args[0], cj.args[1]))
+        keys[inner][0].append(src_expr)
+        keys[inner][1].append(in_expr)
+        keys[inner][2].add(outer)
+    # an inner without an equi is a cross join; keys from two relations
+    # are not a chain
+    if any(len(srcs) != 1 for _, _, srcs in keys.values()):
+        return None
+    return {a: (pk, bk, next(iter(srcs)))
+            for a, (pk, bk, srcs) in keys.items()}
+
+
+def _star_shape(rels, join_equis) -> bool:
+    return _star_dims(rels, join_equis) is not None
 
 
 def _build_plan_tree(rels, per_rel, join_equis, post_join, has_aggs,

@@ -11,11 +11,34 @@ traffic; kernel device times come from CUDA events.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import time
 from collections import defaultdict
 from typing import Iterator
 
 from ..config import config
+
+# the Perfmon of the query executing now (PlannedQuery.execute sets it), so
+# that an op deep in a device function can count a route it took
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("perfmon",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def active(pm: "Perfmon") -> Iterator[None]:
+    """Make `pm` the counter target of bump_active while the block runs."""
+    tok = _ACTIVE.set(pm)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(tok)
+
+
+def bump_active(counter: str, n: int = 1) -> None:
+    """Bump `counter` on the executing query's Perfmon, if there is one."""
+    pm = _ACTIVE.get()
+    if pm is not None:
+        pm.bump(counter, n)
 
 
 class Perfmon:
@@ -106,7 +129,9 @@ class Perfmon:
                   "dist_distinct_steps", "dist_resident_hits",
                   "dist_star_steps", "devprog_tier_fallbacks",
                   "fanout_retries", "salt_retries", "sort_fallbacks",
-                  "dense_fallbacks", "unported_host_exact"):
+                  "dense_fallbacks", "k4_shape_routed", "topk_packed",
+                  "topk_threshold", "topk_adaptive", "topk_exact",
+                  "unported_host_exact"):
             if self.counts.get(c):
                 out.append(f"{c}: {self.counts[c]}")
         return out

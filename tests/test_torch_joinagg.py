@@ -67,6 +67,19 @@ def dbs():
     return d, from_reference(d)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _leave_reference_memo_as_found():
+    """tests/test_joinagg.py tells which path ran from the growth of the
+    reference executor's program memo; this module builds the same
+    programs on the same tables, so that, run first in one worker, it
+    would hide that growth.  It removes the entries it added."""
+    from pg_strom_tpu.exec import joinagg_exec as r_joinagg
+    before = set(r_joinagg._JIT_CACHE)
+    yield
+    for key in set(r_joinagg._JIT_CACHE) - before:
+        del r_joinagg._JIT_CACHE[key]
+
+
 def _run(ast, plan_query, Result, sql, db):
     pq = plan_query(ast.parse(sql), db)
     rows = pq.execute()

@@ -221,6 +221,42 @@ def test_k4_refuses_a_shadow_table_past_its_room():
         pp.k4_plan(2048, 20 * 25 + 1, 25)
 
 
+@pytest.mark.parametrize("n_sh", [24, 25])
+def test_mxu_reduce_routes_by_k4_shape(monkeypatch, n_sh):
+    """Under use_pallas_reduce at G = 2048, 24 shadows plan K4 and take it;
+    25 do not fit (k4_fits, with no launch tried), so mxu_reduce takes its
+    own path, counts `k4_shape_routed` and answers bit-equal to the flag
+    off."""
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.ops.preagg_mxu import mxu_reduce
+    from pg_strom_tpu_torch.utils.perfmon import Perfmon, active
+    G, n, S = 2048, 4096, 20 * n_sh + 1
+    g = torch.Generator().manual_seed(n_sh)
+    fc = list(range(0, S - 1, 20))
+    V = torch.randint(-255, 256, (n, S), generator=g).to(torch.bfloat16)
+    V[:, fc] = (torch.rand(n, len(fc), generator=g) * 1e4).to(torch.bfloat16)
+    seg = torch.randint(0, G + 1, (n,), generator=g, dtype=torch.int32)
+    k4_calls = []
+    real = pp.pallas_reduce_reference
+    monkeypatch.setattr(pp, "pallas_reduce_reference",
+                        lambda *a: k4_calls.append(1) or real(*a))
+    with override(use_pallas_reduce=False):
+        want = mxu_reduce(V, seg, G, n, fc)
+    pm = Perfmon()
+    with override(use_pallas_reduce=True), active(pm):
+        got = mxu_reduce(V, seg, G, n, fc)
+    ints = [c for c in range(S) if c not in fc]
+    assert torch.equal(got[0][:, ints], want[0][:, ints])
+    assert pp.k4_fits(G, S, n_sh) == (n_sh == 24)
+    if n_sh == 24:
+        assert pp.k4_plan(G, S, n_sh).ntiles > 1
+        assert k4_calls == [1] and dict(pm.counts) == {}
+        torch.testing.assert_close(got[1], want[1], rtol=1e-2, atol=1.0)
+    else:
+        assert k4_calls == [] and dict(pm.counts) == {"k4_shape_routed": 1}
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_k4_desc_lists_and_maps_the_shadow_columns():
     assert pp._desc(6, [4, 1]) == [4, 1, -1, 1, -1, -1, 0, -1]
     assert pp._desc(3, []) == [-1, -1, -1]

@@ -8,7 +8,8 @@ device plan; the port runs on `device="cpu"`, i.e. through the plain
 PyTorch version of K1.  Rows must be equal as PostgreSQL text at
 extra_float_digits=-3, the reference's own rule.  The port's perfmon must
 show that the v2 shapes ran on the kernel path (device_chunks, no
-unported_host_exact) and that the non-v2 shape ran host-exact, visibly."""
+unported_host_exact) and that the non-v2 shape ran host-exact, visibly.
+The star join and ORDER BY ... LIMIT routes run on the device too."""
 
 from __future__ import annotations
 
@@ -160,16 +161,43 @@ def test_copied_host_surface_matches_reference(dbs, sql):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT count(*) FROM t a, t b, t c WHERE a.key = b.key "
-    "AND a.key = c.key",
     "SELECT key, rank() OVER (ORDER BY key) FROM t",
-    "SELECT key FROM t ORDER BY key LIMIT 3",
 ])
 def test_unported_routes_raise_not_implemented(dbs, sql):
     _, pdb = dbs
     with _forced({"debug_force_offload": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             P.execute(sql, pdb)
+
+
+# name -> (sql, the port's perfmon counter its device route bumps)
+ROUTED_QUERIES = {
+    # a 3-way self-join: the fused star node (TpuStarJoinAgg) with both
+    # inner relations on the bounded-fanout probe.  It joins on the
+    # near-unique y; on `key` (200 rows a value) it would be 240M rows.
+    "self_join_3way": (
+        "SELECT a.key, count(*), sum(b.x) FROM t a, t b, t c "
+        "WHERE a.y = b.y AND a.y = c.y GROUP BY a.key ORDER BY a.key",
+        "kernel tpustarjoinagg"),
+    "order_by_limit": ("SELECT key FROM t ORDER BY key LIMIT 3",
+                       "topk_packed"),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTED_QUERIES))
+def test_routed_query_matches_reference(dbs, name):
+    """Routes that raised before the star join and the top-k were ported
+    answer on the device and agree with the reference."""
+    rdb, pdb = dbs
+    sql, counter = ROUTED_QUERIES[name]
+    with _forced({"debug_force_offload": True, "perfmon": True}), \
+            R.override(debug_force_offload=True):
+        want = r_execute(sql, rdb)
+        got, counts = _port_run(sql, pdb)
+    assert got.formatted(-3) == want.formatted(-3)
+    assert len(got.rows) > 0
+    assert counts.get(counter, 0) >= 1, counts
+    assert counts.get("unported_host_exact", 0) == 0, counts
 
 
 # ---------------------------------------------------------------------------
@@ -283,12 +311,21 @@ def test_join_explain_matches_reference(testdbs, sql):
     assert got.formatted(-3) == want.formatted(-3)
 
 
-def test_star4way_raises_star_joins(testdbs):
-    _, pdb = testdbs
+def test_star4way_matches_reference(testdbs):
+    """The reference's manual benchmark shape: t0 joined to three serial-PK
+    dimensions in one TpuStarJoinAgg pass per fact chunk (identity
+    probes), with every chunk on the device."""
+    rdb, pdb = testdbs
     from pg_strom_tpu.models.testdb import BENCH_QUERIES
-    with _both({}):
-        with pytest.raises(NotImplementedError, match="Star joins"):
-            P.execute(BENCH_QUERIES["star4way"], pdb)
+    sql = BENCH_QUERIES["star4way"]
+    with _both({"chunk_rows": 1 << 11, "perfmon": True}):
+        want = r_execute(sql, rdb)
+        got, counts = _port_run(sql, pdb)
+    assert got.formatted(-3) == want.formatted(-3)
+    assert counts.get("kernel tpustarjoinagg", 0) == 2, counts
+    assert counts.get("device_chunks", 0) == 2, counts
+    assert counts.get("recheck_chunks", 0) == 0, counts
+    assert counts.get("unported_host_exact", 0) == 0, counts
 
 
 def test_distributed_join_raises(testdbs):
