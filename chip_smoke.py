@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (pg_strom_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--rows-log2 27] [--kernel-rows-log2 20]
-                          [--k4-parent DIR]
+                          [--window-rows-log2 25] [--k4-parent DIR]
 
 Phases, in order; any failure raises, exits non-zero and prints no `ok`:
 
@@ -63,6 +63,22 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    sorted rows equal to a stable numpy lexsort, K3 and K2 on every chunk
    of star_k3, every route used; a torch.profiler pass over 3 warm
    star_k3 runs;
+4f. the SQL and plan surface in the same database: window_rank
+   (models/testdb.py's text) cold and warm over a separate t0 of
+   2^--window-rows-log2 rows (2^25 by default: at 2^27 one run spends
+   more than 150 s on the host; 27 runs it over 4b's t0), exact against
+   numpy without a sort, the
+   inner scan on the device, the tier's split logged (scan, mask
+   read-back, row indexes, gather, key encoding, frame lexsort, ranker,
+   POST stage, outer aggregate); window_sum (sum(y) over (partition by
+   cat order by id) where x < 1.0) cold and 3 warm, each cat to rel 1e-9
+   against a sequential numpy sum; two correlated subqueries over tcat
+   (t0's 26 codes and 4 absent ones: a scalar count and an EXISTS) cold
+   and 3 warm, exact, every instantiation planned and run on the device;
+   pgstrom_device_info / program_info / tcache_info; EXPLAIN's device
+   kernel a traced graph; `python -m pg_strom_tpu_torch script.sql`
+   (\\demo 100000, agg_group, window_rank) exits 0 and prints the rows of
+   the same queries run in this process;
 4c. the K4 path in 4b's database: agg_group with the fused kernel off
    and use_pallas_reduce on, cold and 5 warm runs: K4 launched on every
    chunk of each run, rows equal to the K2 path's as PostgreSQL text;
@@ -1092,7 +1108,8 @@ def _run_t0(db, name: str, force: bool = False):
 
 
 def phase_testdb(seed: int, log2n: int, gpu: str,
-                 k4_parent: str | None = None) -> dict:
+                 k4_parent: str | None = None,
+                 window_rows_log2: int = 27) -> dict:
     """agg_group, rollup, filter and agg_nogrp over a 2^log2n-row t0."""
     import torch
     from pg_strom_tpu_torch import override
@@ -1156,9 +1173,9 @@ def phase_testdb(seed: int, log2n: int, gpu: str,
         _log(f"t0: K2 launches {pf.fused_cuda.launches}")
         out["chunk"] = _time_k2_chunk(db, gpu)
         out["k4"] = phase_k4_path(db, data, nchunks, gpu, k4_parent)
-        # 4d and 4e run inside this database so that t0 is built and
+        # 4d, 4e and 4f run inside this database so that t0 is built and
         # uploaded once
-        out["joins"] = phase_joins(db, seed, gpu)
+        out["joins"] = phase_joins(db, seed, gpu, window_rows_log2)
         out["k2_launches"] += out["joins"]["star_sort"]["k2_launches"]
     del db
     TCACHE.clear()
@@ -1348,8 +1365,9 @@ def _run_join(db, name: str, force: bool):
     return _run_q(db, JOIN_SQL[name], force)[:3]
 
 
-def phase_joins(db, seed: int, gpu: str) -> dict:
-    """join_agg, star_group and the t6 join over the resident t0."""
+def phase_joins(db, seed: int, gpu: str, window_rows_log2: int) -> dict:
+    """join_agg, star_group and the t6 join over the resident t0; then
+    phases 4e and 4f in the same database."""
     import torch
     from pg_strom_tpu_torch import override
     from pg_strom_tpu_torch.exec.devcache import chunk_capacity
@@ -1418,6 +1436,8 @@ def phase_joins(db, seed: int, gpu: str) -> dict:
     # 4e runs here, while t1..t3 and t6 are loaded
     out["star_sort"] = phase_star_sort(db, seed, gpu, w_by_key)
     out["k3_launches"] += out["star_sort"]["k3_launches"]
+    # 4f runs here too, while t1..t7 are loaded
+    out["surface"] = phase_surface(db, seed, gpu, window_rows_log2)
     for nm in ("t1", "t2", "t3", "t4", "t6", "t7"):
         db.drop(nm)
     torch.cuda.empty_cache()
@@ -1757,6 +1777,375 @@ def _time_k3_chunk(db, gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the SQL and plan surface over t0
+# ---------------------------------------------------------------------------
+
+WINDOW_SUM_SQL = ("select cat, max(rs) from (select cat, sum(y) over "
+                  "(partition by cat order by id) rs from t0 "
+                  "where x < 1.0) q group by cat order by cat")
+CORR_SQL = {
+    "corr_count": "select k, (select count(*) from t0 where t0.cat = c.k "
+                  "and t0.x < 50.0) from tcat c order by k",
+    # x > 99.99 keeps about 500 rows an instantiation
+    "corr_exists": "select k from tcat c where exists (select 1 from t0 "
+                   "where t0.cat = c.k and t0.x > 99.99) order by k",
+}
+# codes of tcat that t0.cat never takes
+TCAT_ABSENT = ["aab", "abc", "zzy", "zzzz"]
+# the window tier's split of one run: wrapped functions of the port
+WINDOW_SPLIT = (("exec.scan_exec", "ScanExecutor.row_indexes", "row_indexes"),
+                ("plan.window", "_inner_columns", "inner"),
+                ("plan.planner", "_order_plane_keys", "keys"),
+                ("plan.window", "_Frame.__init__", "frame"),
+                ("plan.window", "_window_column", "ranker"),
+                ("plan.window", "_run_columnar", "columnar"))
+
+
+class _Split:
+    """Wall time inside each WINDOW_SPLIT function, and the perfmon of
+    every scan the window's inner stage ran, while active (the POST stage's
+    scan without a qual is not the inner stage's)."""
+
+    def __init__(self):
+        import importlib
+        self.secs, self.scans, self._undo = {}, [], []
+        self._inner = False
+        for mod, attr, key in WINDOW_SPLIT:
+            owner = importlib.import_module(f"pg_strom_tpu_torch.{mod}")
+            if "." in attr:
+                cls, attr = attr.split(".")
+                owner = getattr(owner, cls)
+            self._wrap(owner, attr, key)
+
+    def _wrap(self, owner, attr, key):
+        fn = getattr(owner, attr)
+
+        def timed(*a, **k):
+            if key == "row_indexes" and not self._inner:
+                return fn(*a, **k)
+            t = time.perf_counter()
+            self._inner |= key == "inner"
+            try:
+                return fn(*a, **k)
+            finally:
+                self._inner &= key != "inner"
+                self.secs[key] = (self.secs.get(key, 0.0)
+                                  + time.perf_counter() - t)
+                if key == "row_indexes":
+                    self.scans.append(a[0].perfmon)
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def close(self):
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+
+
+def _window_rank_expected(cat, x, y):
+    """(count(*), max(r), min(r)) of window_rank with no sort: rank() over
+    x descending peaks at each cat's filtered count less the rows that tie
+    its minimum x, plus 1."""
+    import numpy as np
+    keep = y > 5.0
+    c, xv = cat[keep], x[keep]
+    cnt = np.bincount(c, minlength=26)
+    mn = np.full(26, np.inf)
+    np.minimum.at(mn, c, xv)
+    ties = np.bincount(c[xv == mn[c]], minlength=26)
+    return int(keep.sum()), int((cnt - ties + 1)[cnt > 0].max()), 1
+
+
+def _window_sum_expected(cat, x, y):
+    """cat -> the last running sum of y in id (row) order over x < 1.0,
+    summed sequentially (np.cumsum adds left to right)."""
+    import numpy as np
+    sel = x < 1.0
+    c, yv = cat[sel], y[sel]
+    return {CATS[k]: float(np.cumsum(yv[c == k])[-1])
+            for k in range(26) if (c == k).any()}
+
+
+def _zero_launches():
+    from pg_strom_tpu_torch.ops import mxu_lookup as ml
+    from pg_strom_tpu_torch.ops import preagg_fused as pf
+    from pg_strom_tpu_torch.ops import preagg_fused2 as pf2
+    from pg_strom_tpu_torch.ops import preagg_pallas as pp
+    kernels = {"K1": pf2.fused2_cuda, "K2": pf.fused_cuda,
+               "K3": ml.mxu_lookup_cuda, "K4": pp.pallas_cuda}
+    for k in kernels.values():
+        k.launches = 0
+    return kernels
+
+
+def _window_rank_cell(db, gpu: str, n_warm: int) -> dict:
+    """window_rank cold and warm: exact against numpy, the inner scan on
+    the device, and the tier's split of each run."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.exec.devcache import chunk_capacity
+    from pg_strom_tpu_torch.models.testdb import BENCH_QUERIES
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    t0 = db.get("t0")
+    cat, x, y = (t0.columns[c].data for c in ("cat", "x", "y"))
+    nchunks = -(-t0.nrows // chunk_capacity(t0.nrows))
+    want = _window_rank_expected(cat, x, y)
+    runs = []
+    for i in range(1 + n_warm):
+        split = _Split()
+        try:
+            t = time.perf_counter()
+            with override(perfmon=True):
+                pq = plan_query(ast.parse(BENCH_QUERIES["window_rank"]), db)
+                rows = pq.execute()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            split.close()
+        counts = dict(pq.perfmon.counts)
+        if [tuple(r) for r in rows] != [want]:
+            raise AssertionError(f"window_rank: {rows} vs {want}")
+        scans = [dict(pm.counts) for pm in split.scans]
+        if (len(scans) != 1 or scans[0].get("device_chunks", 0) != nchunks
+                or scans[0].get("recheck_chunks", 0)):
+            raise AssertionError(f"window_rank: inner scans {scans}, "
+                                 f"expected one on {nchunks} device chunks")
+        pm = split.scans[0]
+        s = {k: v * 1e3 for k, v in split.secs.items()}
+        disp = pm.times.get("dispatch", 0.0) * 1e3
+        wait = pm.times.get("device_wait", 0.0) * 1e3
+        parts = {
+            "scan launch": disp,
+            "mask read-back": wait,
+            "row indexes on the host": s["row_indexes"] - disp - wait,
+            "column gather": s["inner"] - s["row_indexes"],
+            "key encoding": s.get("keys", 0.0),
+            "frame lexsort": s["frame"],
+            "ranker": s["ranker"],
+            "POST stage": (s["columnar"] - s["inner"] - s.get("keys", 0.0)
+                           - s["frame"] - s["ranker"]),
+            "outer aggregate": dt * 1e3 - s["columnar"],
+        }
+        runs.append(dt)
+        # device time of the inner scan and the outer aggregate (CUDA
+        # events around each launch: perfmon.device_call)
+        kern = sum(v for p_ in (pm, pq.perfmon) for k, v in p_.times.items()
+                   if k.startswith("kernel ")) * 1e3
+        _log(f"window window_rank run {i} ({'cold' if i == 0 else 'warm'}) "
+             f"[{gpu}]: {dt * 1e3:.3f} ms over {t0.nrows} rows, {want[0]} "
+             f"reach the host; split ms "
+             f"{ {k: round(v, 3) for k, v in parts.items()} }; device "
+             f"kernels {kern:.3f} ms, busy share {kern / (dt * 1e3):.5f}; "
+             f"inner scan perfmon {scans[0]}; query perfmon {counts}")
+    return {"rows": t0.nrows, "cold_ms": runs[0] * 1e3,
+            "warm_ms": statistics.median(runs[1:]) * 1e3,
+            "warm_all_ms": [r * 1e3 for r in runs[1:]],
+            "host_rows": want[0], "split_ms": parts, "device_ms": kern}
+
+
+def _add_tcat(db):
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.datastore import Table, column_from_values
+    db.create(Table.from_columns("tcat", {
+        "k": column_from_values(T.TEXT, CATS + TCAT_ABSENT)}))
+
+
+def _corr_cell(db, name: str, gpu: str, nchunks: int, want) -> dict:
+    """One correlated query cold and 3 warm: exact rows, and every
+    instantiation planned with typed constants and run on the device."""
+    from pg_strom_tpu_torch.plan import correlated, planner
+    rows_of, plan_query = correlated._Runner._rows, planner.plan_query
+    runs, insts = [], []
+
+    def counted(self, pvals):
+        def plan(q, pdb):
+            pq = plan_query(q, pdb)
+            insts.append(pq)
+            return pq
+        planner.plan_query = plan
+        try:
+            return rows_of(self, pvals)
+        finally:
+            planner.plan_query = plan_query
+
+    correlated._Runner._rows = counted
+    force = False
+    try:
+        for i in range(4):
+            insts.clear()
+            rows, counts, dt, _ = _run_q(db, CORR_SQL[name], force)
+            if i == 0 and not any(pq.perfmon.counts.get("device_chunks")
+                                  for pq in insts):
+                _log(f"corr {name}: the cost model keeps the "
+                     "instantiations on the host; run with "
+                     "debug_force_offload")
+                force = True
+                insts.clear()
+                rows, counts, dt, _ = _run_q(db, CORR_SQL[name], force)
+            if [tuple(r) for r in rows] != want:
+                raise AssertionError(f"{name}: {rows} vs {want}")
+            icounts = [dict(pq.perfmon.counts) for pq in insts]
+            bad = [c for c in icounts
+                   if c.get("device_chunks", 0) != nchunks
+                   or c.get("recheck_chunks", 0)
+                   or c.get("unported_host_exact", 0)]
+            if len(insts) != len(CATS) + len(TCAT_ABSENT) or bad:
+                raise AssertionError(f"{name}: {len(insts)} instantiations, "
+                                     f"not on the device: {bad[:3]}")
+            runs.append(dt)
+            if i == 0:
+                _log(f"corr {name}: {len(insts)} instantiations planned, "
+                     f"each on {nchunks} device chunks (first: "
+                     f"{icounts[0]}; outer perfmon {counts})")
+    finally:
+        correlated._Runner._rows = rows_of
+    med = statistics.median(runs[1:])
+    _log(f"corr {name} [{gpu}]: exact vs numpy; cold {runs[0] * 1e3:.3f} ms, "
+         f"warm median {med * 1e3:.3f} ms of "
+         f"{[round(r * 1e3, 3) for r in runs[1:]]}")
+    return {"cold_ms": runs[0] * 1e3, "warm_ms": med * 1e3,
+            "warm_all_ms": [r * 1e3 for r in runs[1:]], "forced": force,
+            "instantiations": len(CATS) + len(TCAT_ABSENT)}
+
+
+def _check_introspection(db, gpu: str) -> None:
+    import torch
+    from pg_strom_tpu_torch import execute
+    from pg_strom_tpu_torch.ops import cuda as kc
+    dev = execute("select device_kind from pgstrom_device_info "
+                  "where id = 0", db).rows
+    if dev != [(torch.cuda.get_device_name(0),)]:
+        raise AssertionError(f"pgstrom_device_info: {dev}")
+    prog = execute("select kind, plan_key from pgstrom_program_info", db).rows
+    built = {r[1].split(" ")[0] for r in prog if r[0] == "kernel:built"}
+    if built != set(kc.SOURCES):
+        raise AssertionError(f"pgstrom_program_info: {prog[:6]}")
+    tc = execute("select table_name, kind, nchunks, nbytes, hits from "
+                 "pgstrom_tcache_info where table_name = 't0'", db).rows
+    if not any(r[1] == "chunks" and r[3] > 0 for r in tc):
+        raise AssertionError(f"pgstrom_tcache_info: t0 not resident ({tc})")
+    _log(f"introspection [{gpu}]: device_kind {dev[0][0]}; program_info "
+         f"{len(prog)} rows, kernel sources {sorted(built)} built; t0 "
+         f"resident: {tc}")
+
+
+def _check_explain(db, gpu: str) -> None:
+    from pg_strom_tpu_torch import execute, override
+    with override(show_device_kernel=True):
+        text = "\n".join(r[0] for r in execute(
+            "EXPLAIN select id from t0 where x < 1.0", db).rows)
+    if "TpuScan on t0" not in text or "Device Kernel: " not in text:
+        raise AssertionError(f"EXPLAIN: no TpuScan with a device kernel:\n"
+                             f"{text[:800]}")
+    kernel = text.split("Device Kernel: ", 1)[1]
+    if not kernel.startswith("graph():") or "aten." not in kernel:
+        raise AssertionError(f"EXPLAIN: device kernel {kernel[:300]}")
+    _log(f"EXPLAIN with show_device_kernel [{gpu}]: a traced graph of "
+         f"{len(kernel)} characters, {kernel.count('call_function')} calls")
+
+
+def _check_shell(gpu: str) -> dict:
+    """`python -m pg_strom_tpu_torch script.sql` on the card: exit code 0
+    and the rows printed by the same queries run in this process."""
+    import tempfile
+    from pg_strom_tpu_torch import execute
+    from pg_strom_tpu_torch.cli import _fmt_table
+    from pg_strom_tpu_torch.datastore import Database
+    from pg_strom_tpu_torch.models.testdb import BENCH_QUERIES, build_testdb
+    queries = [BENCH_QUERIES["agg_group"], BENCH_QUERIES["window_rank"]]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "script.sql")
+        with open(path, "w") as f:
+            f.write("\\demo 100000\n" + "".join(q + ";\n" for q in queries))
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pg_strom_tpu_torch", path],
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t
+    if r.returncode != 0:
+        raise AssertionError(f"shell exited {r.returncode}:\n"
+                             f"{r.stderr[-2000:]}")
+    db = Database()
+    build_testdb(db, fact_rows=100000, dim_rows=40000)
+    want = [_fmt_table(res.columns, res.rows, res.types) for res in
+            (execute(q, db) for q in queries)]
+    got = r.stdout
+    pos = 0
+    for w in want:
+        i = got.find(w, pos)
+        if i < 0:
+            raise AssertionError(f"shell output lacks\n{w}\nin\n{got[-3000:]}")
+        pos = i + len(w)
+    if "ERROR" in got:
+        raise AssertionError(f"shell printed an error:\n{got[-2000:]}")
+    _log(f"shell [{gpu}]: python -m pg_strom_tpu_torch script.sql exited 0 "
+         f"in {dt:.1f} s; its agg_group ({len(want[0].splitlines()) - 3} "
+         f"rows) and window_rank tables equal the in-process ones")
+    return {"seconds": dt}
+
+
+def phase_surface(db, seed: int, gpu: str, window_rows_log2: int) -> dict:
+    """window_rank, window_sum, two correlated subqueries, the pgstrom_*
+    tables, EXPLAIN's device kernel and the shell, over the resident t0."""
+    import torch
+    from pg_strom_tpu_torch.exec.devcache import chunk_capacity
+    t_phase = time.perf_counter()
+    t0 = db.get("t0")
+    nchunks = -(-t0.nrows // chunk_capacity(t0.nrows))
+    cat, x, y = (t0.columns[c].data for c in ("cat", "x", "y"))
+    kernels = _zero_launches()
+    out = {"timing": {}}
+    if (1 << window_rows_log2) < t0.nrows:
+        wdb, _ = _t0_db(seed + 7, 1 << window_rows_log2)
+        _log(f"window_rank runs over a separate t0 of 2^{window_rows_log2} "
+             f"rows (--window-rows-log2)")
+        out["timing"]["window_rank"] = _window_rank_cell(wdb, gpu, 1)
+        wdb.drop("t0")
+        del wdb
+        torch.cuda.empty_cache()
+    else:
+        out["timing"]["window_rank"] = _window_rank_cell(db, gpu, 1)
+    want = _window_sum_expected(cat, x, y)
+    runs = []
+    for i in range(4):
+        rows, counts, dt, _ = _run_q(db, WINDOW_SUM_SQL, False)
+        got = dict(rows)
+        if set(got) != set(want) or not all(
+                _close(got[k], want[k]) for k in want):
+            raise AssertionError(f"window_sum: {rows[:3]} vs "
+                                 f"{list(want.items())[:3]}")
+        runs.append(dt)
+    med = statistics.median(runs[1:])
+    out["timing"]["window_sum"] = {"cold_ms": runs[0] * 1e3,
+                                   "warm_ms": med * 1e3,
+                                   "warm_all_ms": [r * 1e3 for r in runs[1:]]}
+    _log(f"window window_sum [{gpu}]: {int((x < 1.0).sum())} rows reach the "
+         f"host; per cat to rel 1e-9 vs numpy; cold {runs[0] * 1e3:.3f} ms, "
+         f"warm median {med * 1e3:.3f} ms of "
+         f"{[round(r * 1e3, 3) for r in runs[1:]]} (perfmon {counts})")
+    _add_tcat(db)
+    import numpy as np
+    cnt = np.bincount(cat[x < 50.0], minlength=26)
+    hit = np.bincount(cat[x > 99.99], minlength=26) > 0
+    codes = sorted(CATS + TCAT_ABSENT)
+    wants = {"corr_count": [(k, int(cnt[CATS.index(k)]) if k in CATS else 0)
+                            for k in codes],
+             "corr_exists": [(k,) for k in codes
+                             if k in CATS and hit[CATS.index(k)]]}
+    for name in CORR_SQL:
+        out["timing"][name] = _corr_cell(db, name, gpu, nchunks, wants[name])
+    db.drop("tcat")
+    _check_introspection(db, gpu)
+    _check_explain(db, gpu)
+    out["shell"] = _check_shell(gpu)
+    out["launches"] = {k: v.launches for k, v in kernels.items()}
+    _log(f"phase 4f: kernel launches {out['launches']} (these paths reach "
+         f"the device through the scan and aggregate executors); "
+         f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: the K4 path (use_pallas_reduce, the fused kernel off)
 # ---------------------------------------------------------------------------
 
@@ -2087,6 +2476,9 @@ def main(argv=None) -> int:
                     help="flagship table size (2^N rows; default 27)")
     ap.add_argument("--kernel-rows-log2", type=int, default=20,
                     help="rows of the kernel-vs-plain cases (default 20)")
+    ap.add_argument("--window-rows-log2", type=int, default=25,
+                    help="rows of the t0 that phase 4f's window_rank runs "
+                         "over (2^N; a separate t0 when below --rows-log2)")
     ap.add_argument("--k4-parent", metavar="DIR",
                     help="another checkout of the repo whose K4 is timed "
                          "beside this tree's in phase 4c (e.g. the parent "
@@ -2133,7 +2525,8 @@ def main(argv=None) -> int:
     err = max(err, phase_kernels_k2k4(args.seed, args.kernel_rows_log2))
     k3_err = phase_kernels_k3(args.seed, args.kernel_rows_log2)
     timing = phase_slice(args.seed, args.rows_log2, gpu)
-    t0db = phase_testdb(args.seed, args.rows_log2, gpu, args.k4_parent)
+    t0db = phase_testdb(args.seed, args.rows_log2, gpu, args.k4_parent,
+                        min(args.window_rows_log2, args.rows_log2))
     phase_small(args.seed)
     _log(f"total {time.perf_counter() - t_start:.1f} s [{gpu}]")
 

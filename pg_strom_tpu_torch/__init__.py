@@ -14,7 +14,12 @@ strategy of `ops/preagg.build_preagg_fn` (column sums on K2 or K4,
 scatter, sort, ungrouped) -> host absorb, merge and finalize.  Scans
 (`exec/scan_exec.py`), hash joins (`exec/join_exec.py`) and the fused
 join+aggregate (`exec/joinagg_exec.py`) run on the device too, the dense
-join probe on the CUDA kernel K3.  Plan routes whose executors are not
+join probe on the CUDA kernel K3.  The reference's SQL surface is ported
+with them: window functions (`plan/window.py`), correlated subqueries
+(`plan/correlated.py`), the `pgstrom_*` introspection tables
+(`utils/introspect.py`), the workload models (`models/`), the SQL
+generator of the differential fuzz (`utils/sqlgen.py`) and the shell
+(`python -m pg_strom_tpu_torch`).  Plan routes whose executors are not
 ported yet raise NotImplementedError naming their ROADMAP item.
 
 The device is explicit (`config.device`, default "cuda"): with "cuda" and

@@ -537,9 +537,11 @@ class Database:
     def get(self, name: str) -> Table:
         if name not in self.tables:
             if name.startswith("pgstrom_"):
-                raise NotImplementedError(
-                    f"introspection table {name}: not ported yet (ROADMAP "
-                    "queue 1, the rest of the SQL and plan surface)")
+                # introspection virtual tables (reference SRF analog)
+                from .utils.introspect import virtual_table
+                vt = virtual_table(name)
+                if vt is not None:
+                    return vt
             raise KeyError(f'relation "{name}" does not exist')
         return self.tables[name]
 

@@ -221,7 +221,8 @@ def bind_expr(a: Any, scope: Scope, allow_aggs: bool = False) -> Expr:
             try:
                 vals = _run_subquery(a.items.query, scope, ncols=1)
             except BindError as err:
-                _correlated_unported(err)
+                from .correlated import bind_correlated
+                return bind_correlated(a, scope, allow_aggs, err)
             items = [Const(type=vals[1][0], value=r[0]) for r in vals[0]]
             if not items:
                 # IN (empty set) = FALSE, NOT IN (empty set) = TRUE — even
@@ -239,7 +240,8 @@ def bind_expr(a: Any, scope: Scope, allow_aggs: bool = False) -> Expr:
         try:
             rows, types = _run_subquery(a.query, scope, ncols=1)
         except BindError as err:
-            _correlated_unported(err)
+            from .correlated import bind_correlated
+            return bind_correlated(a, scope, allow_aggs, err)
         if len(rows) > 1:
             raise BindError("more than one row returned by a subquery "
                             "used as an expression")
@@ -249,18 +251,12 @@ def bind_expr(a: Any, scope: Scope, allow_aggs: bool = False) -> Expr:
         try:
             rows, _ = _run_subquery(a.query, scope, ncols=None)
         except BindError as err:
-            _correlated_unported(err)
+            from .correlated import bind_correlated
+            return bind_correlated(a, scope, allow_aggs, err)
         return Const(type=T.BOOL, value=bool(rows) != a.negated)
     if isinstance(a, ast.ABoundConst):
         return Const(type=a.vtype, value=a.value)
     raise BindError(f"cannot bind {type(a).__name__}")
-
-
-def _correlated_unported(err: BindError):
-    """Correlated subqueries (plan/correlated.py) are not ported yet."""
-    raise NotImplementedError(
-        "correlated subqueries: not ported yet (ROADMAP queue 1, the rest "
-        "of the SQL and plan surface)") from err
 
 
 def _run_subquery(q, scope: Scope, ncols):

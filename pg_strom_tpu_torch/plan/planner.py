@@ -207,44 +207,12 @@ def fmt_expr(e: Expr) -> str:
 # planning
 # ---------------------------------------------------------------------------
 
-def _contains_window(v: Any) -> bool:
-    """Any AWindow in this AST fragment, not descending into subqueries
-    (their windows belong to their own SELECT's scope)."""
-    if isinstance(v, ast.AWindow):
-        return True
-    if isinstance(v, (ast.ASubquery, ast.AExists, ast.SelectStmt,
-                      ast.SetOpStmt)):
-        return False
-    if isinstance(v, (list, tuple)):
-        return any(_contains_window(x) for x in v)
-    if dataclasses.is_dataclass(v) and not isinstance(v, type):
-        return any(_contains_window(getattr(v, f.name))
-                   for f in dataclasses.fields(v))
-    return False
-
-
-def stmt_has_windows(stmt: "ast.SelectStmt") -> bool:
-    """True when this SELECT needs the WindowAgg tier; raises for window
-    calls in clauses PostgreSQL forbids them in."""
-    found = any(_contains_window(it.expr) for it in stmt.items) or \
-        any(_contains_window(oi.expr) for oi in stmt.order_by)
-    for clause, label in ((stmt.where, "WHERE"),
-                          (stmt.group_by, "GROUP BY"),
-                          (stmt.having, "HAVING")):
-        if clause is not None and _contains_window(clause):
-            raise SqlError(
-                f"window functions are not allowed in {label}")
-    for jc in stmt.joins:
-        if jc.on is not None and _contains_window(jc.on):
-            raise SqlError("window functions are not allowed in JOIN/ON")
-    return found
-
-
 def plan_select(stmt: ast.SelectStmt, db: Database) -> PlannedQuery:
+    from .window import stmt_has_windows, plan_windowed
     if stmt.grouping_sets is not None:
         return plan_grouping_sets(stmt, db)
     if stmt_has_windows(stmt):
-        _unported("window functions", "SQL and plan surface")
+        return plan_windowed(stmt, db)
     perfmon = Perfmon()
 
     # ---- FROM: resolve relations (subqueries planned recursively) ---------
@@ -1277,9 +1245,36 @@ def _cmp_sort_rows(rows: list, specs: list, getter) -> list:
 
 def _kernel_text(obj, alias: str, dev_quals: list[Expr]) -> str:
     """Lowered device kernel dump (pg_strom.show_device_kernel analog,
-    main.c:399-439).  The reference prints the traced jaxpr of the scan
-    qual; the port evaluates the qual eagerly and has no traced program."""
-    return "(unavailable: the port evaluates the qual eagerly)"
+    main.c:399-439): the scan qual over this schema, traced with make_fx
+    over an 8-row chunk of the table's planes on the configured device,
+    printed as its FX graph."""
+    try:
+        import numpy as np
+        import torch
+        from torch.fx.experimental.proxy_tensor import make_fx
+        from ..exec.devcache import device
+        from ..expr.lower_torch import (build_qual_fn,
+                                        schema_from_chunk_columns,
+                                        planes_of_column)
+        tbl = obj if isinstance(obj, Table) else None
+        if tbl is None:
+            return "(subquery input)"
+        r = rename_table(tbl, alias)
+        names = r.column_names
+        schema = schema_from_chunk_columns(names, list(r.columns.values()))
+        pred = and_all([bind_columns(q, {n: i for i, n in enumerate(names)})
+                        for q in dev_quals])
+        fn = build_qual_fn(pred, schema)
+        dev = device()
+        dummy = tuple(
+            tuple(torch.from_numpy(np.zeros((8,) + p.shape[1:], p.dtype))
+                  .to(dev) for p in planes_of_column(c))
+            for c in r.columns.values())
+        graph = make_fx(lambda cols: fn(cols, 8))(dummy).graph
+        text = str(graph)
+        return text if len(text) < 4000 else text[:4000] + " ..."
+    except Exception as e:  # kernel dump must never break EXPLAIN
+        return f"(unavailable: {e})"
 
 
 def _plan_table_less(stmt, db, perfmon) -> PlannedQuery:
@@ -1604,6 +1599,7 @@ def plan_recursive(stmt: "ast.ARecursive", db: Database) -> PlannedQuery:
     if len(val_pq.out_types) != len(out_types):
         raise SqlError("each UNION query must have the same "
                        "number of columns")
+    from .window import _common_type
     for ci, (bt, rt) in enumerate(zip(out_types, val_pq.out_types)):
         # PG: the recursive term may implicitly coerce UP to the
         # non-recursive term's type, never change it (int8 base accepts
@@ -1653,21 +1649,6 @@ def plan_recursive(stmt: "ast.ARecursive", db: Database) -> PlannedQuery:
                     [base_pq.root],
                     cost=base_pq.root.cost)    # >= the base term's rows
     return PlannedQuery(out_names, out_types, run, root, base_pq.perfmon)
-
-
-_NUM_CHAIN = (T.INT2, T.INT4, T.INT8, T.NUMERIC, T.FLOAT4, T.FLOAT8)
-
-
-def _common_type(a: T, b: T) -> Optional[T]:
-    """PG select_common_type for a column pair: identical, the numeric
-    promotion chain, or date->timestamp; None = no common type."""
-    if a == b:
-        return a
-    if a in _NUM_CHAIN and b in _NUM_CHAIN:
-        return _NUM_CHAIN[max(_NUM_CHAIN.index(a), _NUM_CHAIN.index(b))]
-    if {a, b} == {T.DATE, T.TIMESTAMP}:
-        return T.TIMESTAMP
-    return None
 
 
 def _gs_single_pass(stmt, db, sets, all_keys, per_items, per_having,
@@ -1778,6 +1759,7 @@ def plan_grouping_sets(stmt: "ast.SelectStmt", db: Database) -> PlannedQuery:
     NULL in the select list, and GROUPING(e1..ek) folds to its constant
     bitmask.  ORDER BY / LIMIT / DISTINCT apply to the appended rows
     (output-column references only, like a set op)."""
+    from .window import stmt_has_windows
     if stmt_has_windows(stmt):
         raise SqlError(
             "window functions with GROUPING SETS are not supported")

@@ -280,8 +280,8 @@ def _dml_layout(name: str, tbl) -> dict:
 
 def _bound_where(where, name: str, tbl, db):
     """WHERE of UPDATE/DELETE bound to the table layout — the match set
-    comes from the same scan route SELECT uses (plan/planner.py
-    _scan_row_indexes)."""
+    comes from ScanExecutor.row_indexes, so the filter kernel (and its
+    CpuReCheck ladder) is the same one SELECT uses."""
     from ..plan.binder import Scope, bind_expr
     from ..expr.ir import bind_columns
     be = bind_expr(where, Scope(rels=[(name, tbl)], db=db),
@@ -292,14 +292,13 @@ def _bound_where(where, name: str, tbl, db):
 def _exec_delete(stmt: "ast.DeleteStmt", db: Database) -> Result:
     import numpy as np
     from ..datastore import Table, column_gather
-    from ..plan.planner import _scan_row_indexes
-    from ..utils.perfmon import Perfmon
+    from ..exec.scan_exec import ScanExecutor
     tbl = db.get(stmt.name)
     if stmt.where is None:
         hit = np.arange(tbl.nrows, dtype=np.int64)
     else:
-        hit = np.asarray(_scan_row_indexes(
-            tbl, _bound_where(stmt.where, stmt.name, tbl, db), Perfmon()),
+        hit = np.asarray(ScanExecutor(
+            tbl, _bound_where(stmt.where, stmt.name, tbl, db)).row_indexes(),
             dtype=np.int64)
     # plane-level rebuild (a python keep-list would rebuild every column
     # through per-value loops)
@@ -329,8 +328,7 @@ def _widening_cast(src, dst) -> bool:
 def _exec_update(stmt: "ast.UpdateStmt", db: Database) -> Result:
     import numpy as np
     from ..errors import SqlError
-    from ..plan.planner import _scan_row_indexes
-    from ..utils.perfmon import Perfmon
+    from ..exec.scan_exec import ScanExecutor
     from ..plan.binder import Scope, bind_expr
     from ..expr.ir import bind_columns
     from ..expr.eval_cpu import eval_expr_cpu
@@ -344,8 +342,8 @@ def _exec_update(stmt: "ast.UpdateStmt", db: Database) -> Result:
     if stmt.where is None:
         hit = np.arange(tbl.nrows, dtype=np.int64)
     else:
-        hit = np.asarray(_scan_row_indexes(
-            tbl, _bound_where(stmt.where, stmt.name, tbl, db), Perfmon()),
+        hit = np.asarray(ScanExecutor(
+            tbl, _bound_where(stmt.where, stmt.name, tbl, db)).row_indexes(),
             dtype=np.int64)
     scope = Scope(rels=[(stmt.name, tbl)], db=db)
     layout = _dml_layout(stmt.name, tbl)
