@@ -79,6 +79,21 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    kernel a traced graph; `python -m pg_strom_tpu_torch script.sql`
    (\\demo 100000, agg_group, window_rank) exits 0 and prints the rows of
    the same queries run in this process;
+4g. COPY and the distributed mesh in the same database: copy_t0 writes
+   a 2^24-row CSV of t0's schema, COPYs it into t0c through the native
+   loader (the native path asserted; every plane exact against numpy;
+   rows/s and the arena tables logged) and runs agg_group over it on K2
+   (exact); a 2^16-row COPY of int4, float8, date, text and numeric
+   columns (load_csv2) equals the exact python path; then, with
+   pg_strom.distributed on a 4-shard mesh (round-robin over the visible
+   devices: a virtual mesh of cuda:0 on one card; again one shard a
+   device when that differs), dist_join_agg (join_agg),
+   dist_agg_group (agg_group), dist_star (star_k3 over t0c: K3 and K2 on
+   every shard), dist_topk (sort) and dist_distinct (count(DISTINCT aid)
+   by cat), each cold and 3 warm, exact against numpy, its dist_*
+   counter asserted (a DistFallback fails), the warm runs on resident
+   shards with 0 H2D bytes; dist_distinct once more under device_distinct
+   without distributed; dryrun_multichip(4), flat and (2, 2);
 4c. the K4 path in 4b's database: agg_group with the fused kernel off
    and use_pallas_reduce on, cold and 5 warm runs: K4 launched on every
    chunk of each run, rows equal to the K2 path's as PostgreSQL text;
@@ -1177,6 +1192,7 @@ def phase_testdb(seed: int, log2n: int, gpu: str,
         # uploaded once
         out["joins"] = phase_joins(db, seed, gpu, window_rows_log2)
         out["k2_launches"] += out["joins"]["star_sort"]["k2_launches"]
+        out["k2_launches"] += out["joins"]["dist"]["launches"]["K2"]
     del db
     TCACHE.clear()
     torch.cuda.empty_cache()
@@ -1438,6 +1454,8 @@ def phase_joins(db, seed: int, gpu: str, window_rows_log2: int) -> dict:
     out["k3_launches"] += out["star_sort"]["k3_launches"]
     # 4f runs here too, while t1..t7 are loaded
     out["surface"] = phase_surface(db, seed, gpu, window_rows_log2)
+    # and 4g, whose star probes t2, t3 and t6
+    out["dist"] = phase_dist(db, seed, gpu)
     for nm in ("t1", "t2", "t3", "t4", "t6", "t7"):
         db.drop(nm)
     torch.cuda.empty_cache()
@@ -2146,6 +2164,355 @@ def phase_surface(db, seed: int, gpu: str, window_rows_log2: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: COPY through the native loader, and the distributed mesh
+# ---------------------------------------------------------------------------
+
+COPY_ROWS_LOG2 = 24
+DIST_SHARDS = 4
+T0C_DDL = ("create table t0c (id int4, cat text, aid int4, bid int4, "
+           "cid int4, did int4, eid int4, x float8, y float8)")
+DIST_SQL = {
+    # testdb.py:91 over the 2^27-row t0: the shuffle join+aggregate
+    "dist_join_agg": JOIN_SQL["join_agg"],
+    # DistPreAggExecutor: data-parallel grouped aggregation
+    "dist_agg_group": T0_SQL["agg_group"],
+    # the star over the 2^24-row t0c (the 2^28 staging cap of the
+    # distributed star admits 2^24 rows of t0's nine columns): K3 probes
+    # t6 and K2 groups by cat on every shard
+    "dist_star": STAR_SQL["star_k3"].replace("t0.", "t0c.")
+                                    .replace("from t0,", "from t0c,"),
+    # the threshold top-k, one a shard
+    "dist_topk": SORT_SQL["sort"],
+    # count(DISTINCT) grouped: the dedup exchange
+    "dist_distinct": "select cat, count(distinct aid), count(*) from t0 "
+                     "group by cat order by cat",
+}
+DIST_COUNTER = {"dist_join_agg": "dist_steps", "dist_agg_group": "dist_steps",
+                "dist_star": "dist_star_steps", "dist_topk": None,
+                "dist_distinct": "dist_distinct_steps"}
+
+
+def _csv_digits(v, width: int):
+    """ASCII digits of non-negative ints, zero-padded to `width`: uint8
+    [n, width]."""
+    import numpy as np
+    p10 = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return ((v.astype(np.int64)[:, None] // p10) % 10 + 48).astype(np.uint8)
+
+
+def _write_t0_csv(path: str, seed: int, n: int) -> dict:
+    """t0's schema (models/testdb.py:62-72) as CSV, built as a byte matrix
+    in blocks: fixed-width zero-padded ints, the 26 three-letter codes and
+    x, y = k / 10^4 with k in [0, 10^6) written as dd.dddd (strtod of that
+    text and k / 10^4 are both the double nearest the exact quotient, so
+    the planes compare bit for bit).  Returns the numpy columns."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cols = {"id": np.arange(1, n + 1, dtype=np.int32),
+            "cat": rng.integers(0, 26, n, dtype=np.int32)}
+    for f in ("aid", "bid", "cid", "did", "eid"):
+        cols[f] = rng.integers(1, 40001, n, dtype=np.int32)
+    kx = rng.integers(0, 10 ** 6, n)
+    ky = rng.integers(0, 10 ** 6, n)
+    cols["x"], cols["y"] = kx / 1e4, ky / 1e4
+    letters = np.frombuffer("".join(CATS).encode(), np.uint8).reshape(26, 3)
+    comma = np.full((1, 1), ord(","), np.uint8)
+    with open(path, "wb") as f:
+        for lo in range(0, n, 1 << 20):
+            hi = min(n, lo + (1 << 20))
+            m = hi - lo
+            c = np.broadcast_to(comma, (m, 1))
+            parts = [_csv_digits(cols["id"][lo:hi], 8), c,
+                     letters[cols["cat"][lo:hi]], c]
+            for fk in ("aid", "bid", "cid", "did", "eid"):
+                parts += [_csv_digits(cols[fk][lo:hi], 5), c]
+            for k in (kx[lo:hi], ky[lo:hi]):
+                parts += [_csv_digits(k // 10 ** 4, 2),
+                          np.full((m, 1), ord("."), np.uint8),
+                          _csv_digits(k % 10 ** 4, 4), c]
+            parts[-1] = np.full((m, 1), ord("\n"), np.uint8)
+            f.write(np.ascontiguousarray(np.hstack(parts)).tobytes())
+    return cols
+
+
+def _spy_copy():
+    """Wrap the port's _copy_native: hit["native"] says whether it answered
+    the COPY (the native loader), not the exact python path."""
+    import pg_strom_tpu_torch.sql.api as api
+    hit = {}
+    orig = api._copy_native
+
+    def wrapped(stmt, db, tbl):
+        r = orig(stmt, db, tbl)
+        hit["native"] = r is not None
+        return r
+    api._copy_native = wrapped
+    return hit, lambda: setattr(api, "_copy_native", orig)
+
+
+def _copy_t0(db, seed: int, gpu: str, log2n: int) -> dict:
+    """COPY a 2^log2n-row CSV of t0's schema into t0c through the native
+    loader: every plane exact, agg_group over it on K2 exact."""
+    import numpy as np
+    from pg_strom_tpu_torch import execute
+    from pg_strom_tpu_torch.ops import preagg_fused as pf
+    n = 1 << log2n
+    path = os.path.join(_workdir(), "t0c.csv")
+    t0 = time.perf_counter()
+    cols = _write_t0_csv(path, seed + 90, n)
+    t_write = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    _log(f"copy_t0: wrote {n} rows, {size} bytes of CSV in {t_write:.1f} s")
+    if t_write > 60 and log2n > 22:
+        raise AssertionError(f"copy_t0: the CSV took {t_write:.1f} s to "
+                             "write; cut COPY_ROWS_LOG2 to 22")
+    execute(T0C_DDL, db)
+    hit, restore = _spy_copy()
+    try:
+        t0 = time.perf_counter()
+        r = execute(f"copy t0c from '{path}' with (format csv)", db)
+        t_copy = time.perf_counter() - t0
+    finally:
+        restore()
+        os.unlink(path)
+    if not hit.get("native") or r.command != f"COPY {n}":
+        raise AssertionError(f"copy_t0: native path {hit}, {r.command}")
+    t = db.get("t0c")
+    for c, want in cols.items():
+        col = t.columns[c]
+        if c == "cat":
+            if list(col.dictionary) != CATS or not np.array_equal(
+                    col.data, want):
+                raise AssertionError("copy_t0: cat codes differ")
+        elif col.data.dtype != want.dtype or \
+                col.data.tobytes() != want.tobytes():
+            raise AssertionError(f"copy_t0: plane {c} differs")
+        if not col.valid.all():
+            raise AssertionError(f"copy_t0: NULLs in {c}")
+    rate = n / t_copy
+    _log(f"copy_t0 [{gpu}]: COPY {n} rows ({size} bytes) in {t_copy:.3f} s "
+         f"= {rate:.0f} rows/s, {size / t_copy / 1e6:.1f} MB/s; every "
+         f"plane exact vs numpy")
+    for tbl in ("pgstrom_arena_info", "pgstrom_slab_info"):
+        _log(f"copy_t0: {tbl} {execute(f'select * from {tbl}', db).rows}")
+    before = pf.fused_cuda.launches
+    sql = T0_SQL["agg_group"].replace("from t0", "from t0c")
+    rows, counts, dt, _ = _run_q(db, sql, True)
+    k2 = pf.fused_cuda.launches - before
+    _check_t0("agg_group", rows, (cols["cat"], cols["cid"], cols["x"],
+                                  cols["y"]))
+    if k2 < 1 or counts.get("recheck_chunks", 0):
+        raise AssertionError(f"copy_t0 agg_group: K2 {k2}, perfmon {counts}")
+    _log(f"copy_t0 agg_group [{gpu}]: exact vs numpy, {dt * 1e3:.3f} ms, "
+         f"K2 launches {k2}")
+    return {"rows": n, "bytes": size, "write_s": t_write, "copy_s": t_copy,
+            "rows_per_s": rate, "agg_group_ms": dt * 1e3, "k2_launches": k2,
+            "cols": cols}
+
+
+def _copy_mixed(db, gpu: str) -> dict:
+    """A smaller COPY with date, text and numeric columns (load_csv2):
+    native path taken, rows equal to the exact python path's."""
+    from pg_strom_tpu_torch import execute
+    import pg_strom_tpu_torch.sql.api as api
+    from pg_strom_tpu_torch.sql import parser as ast
+    n = 1 << 16
+    path = os.path.join(_workdir(), "mix.csv")
+    with open(path, "w") as f:
+        f.write("".join(f"{i},{i * 0.25},2023-0{1 + i % 9}-1{i % 3},"
+                        f"nm{i % 977},{i - 30000}.{i % 100:02d}\n"
+                        for i in range(n)))
+    ddl = "create table {} (id int4, x float8, d date, name text, n numeric)"
+    execute(ddl.format("mixn"), db)
+    execute(ddl.format("mixp"), db)
+    hit, restore = _spy_copy()
+    try:
+        t0 = time.perf_counter()
+        execute(f"copy mixn from '{path}' with (format csv)", db)
+        dt = time.perf_counter() - t0
+    finally:
+        restore()
+    api._copy_python(ast.parse(f"copy mixp from '{path}' with (format csv)"),
+                     db, db.get("mixp"))
+    os.unlink(path)
+    q = "select id, x, d, name, n from {} order by id"
+    a = execute(q.format("mixn"), db).formatted(-3)
+    b = execute(q.format("mixp"), db).formatted(-3)
+    db.drop("mixn")
+    db.drop("mixp")
+    if not hit.get("native") or a != b or len(a) != n:
+        raise AssertionError(f"copy_mixed: native {hit}, equal {a == b}")
+    _log(f"copy_mixed [{gpu}]: {n} rows of int4, float8, date, text and "
+         f"numeric through load_csv2 in {dt * 1e3:.3f} ms, equal to the "
+         f"python path")
+    return {"rows": n, "copy_ms": dt * 1e3}
+
+
+def _workdir() -> str:
+    """Scratch files of phase 4g: _chipwork/ of the checkout (listed in
+    .gitignore, not copied back from a chip run)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "_chipwork")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _run_qp(db, sql: str, cfg: dict):
+    """(rows, perfmon counts, perfmon bytes and phase seconds, seconds) of
+    one query under perfmon and `cfg`."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    t0 = time.perf_counter()
+    with override(perfmon=True, **cfg):
+        pq = plan_query(ast.parse(sql), db)
+        rows = pq.execute()
+    torch.cuda.synchronize()
+    return (rows, dict(pq.perfmon.counts),
+            dict(pq.perfmon.bytes, **{f"{k}_s": round(v, 4) for k, v in
+                                      pq.perfmon.times.items()}),
+            time.perf_counter() - t0)
+
+
+def _distinct_expected(t0cols):
+    import numpy as np
+    cat, aid = t0cols["cat"], t0cols["aid"]
+    seen = np.bincount(cat.astype(np.int64) * 40001 + aid,
+                       minlength=26 * 40001) > 0
+    nd = seen.reshape(26, 40001).sum(axis=1)
+    cnt = np.bincount(cat, minlength=26)
+    return [(CATS[k], int(nd[k]), int(cnt[k])) for k in range(26) if cnt[k]]
+
+
+def _dist_cell(db, name: str, sql: str, check, gpu: str, kernels,
+               shards: int, n_warm: int = 3, cfg=None) -> dict:
+    """One distributed cell: cold, then n_warm warm runs, each checked
+    exactly and asserting its counter (so a DistFallback fails); the warm
+    runs hit the resident shards and upload 0 bytes."""
+    import torch
+    cfg = dict({"distributed": True, "debug_force_offload": True,
+                "mesh_shards": shards}, **(cfg or {}))
+    counter = DIST_COUNTER[name]
+    times, launches = [], []
+    for i in range(1 + n_warm):
+        k0 = {k: v.launches for k, v in kernels.items()}
+        rows, counts, nbytes, dt = _run_qp(db, sql, cfg)
+        launches.append({k: v.launches - k0[k] for k, v in kernels.items()})
+        check(rows)
+        if counter is not None and counts.get(counter, 0) < 1:
+            raise AssertionError(f"{name}: {counter} not counted (a "
+                                 f"fallback?): perfmon {counts}")
+        if name == "dist_topk" and not counts.get("topk_threshold", 0):
+            raise AssertionError(f"{name}: perfmon {counts}")
+        if i and (counts.get("dist_resident_hits", 0) < 1
+                  or nbytes.get("h2d", 0) != 0):
+            raise AssertionError(f"{name}: warm run without resident "
+                                 f"shards: perfmon {counts}, bytes {nbytes}")
+        times.append(dt)
+        if i == 0:
+            cold_counts, cold_bytes = counts, nbytes
+    torch.cuda.empty_cache()
+    med = statistics.median(times[1:])
+    where = (f"{shards} shards" if shards
+             else f"{torch.cuda.device_count()} device(s), one shard each")
+    _log(f"{name} [{gpu}] on {where}: exact; cold "
+         f"{times[0] * 1e3:.3f} ms (h2d {cold_bytes.get('h2d', 0)} bytes), "
+         f"warm median {med * 1e3:.3f} ms of "
+         f"{[round(t * 1e3, 3) for t in times[1:]]} (0 h2d bytes); kernel "
+         f"launches per run {launches}; cold perfmon {cold_counts}, warm "
+         f"{counts}; the last warm run's phases {nbytes}")
+    return {"cold_ms": times[0] * 1e3, "warm_ms": med * 1e3,
+            "warm_all_ms": [t * 1e3 for t in times[1:]],
+            "launches": launches, "shards": shards, "warm_phases": nbytes}
+
+
+def phase_dist(db, seed: int, gpu: str) -> dict:
+    """copy_t0 and the small mixed COPY, then the distributed cells on a
+    4-shard mesh (round-robin over the visible devices: all on cuda:0 on
+    one card) and again one shard a device when that mesh differs, then
+    dryrun_multichip(4), flat and (2, 2)."""
+    import numpy as np
+    import torch
+    from pg_strom_tpu_torch.parallel.dryrun import dryrun_multichip
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels = _zero_launches()
+    out = {"timing": {}}
+    out["copy_t0"] = _copy_t0(db, seed, gpu, COPY_ROWS_LOG2)
+    ccols = out["copy_t0"].pop("cols")
+    out["copy_mixed"] = _copy_mixed(db, gpu)
+    t0 = db.get("t0")
+    t0cols = {c: t0.columns[c].data for c in
+              ("cat", "aid", "cid", "eid", "x", "y")}
+    w_by_key = np.zeros(DIM_ROWS + 1, np.int64)
+    t6 = db.get("t6")
+    w_by_key[t6.columns["fid"].data] = t6.columns["w"].data
+    want = {
+        "dist_agg_group": lambda r: _check_t0(
+            "agg_group", r, (t0cols["cat"], t0cols["cid"], t0cols["x"],
+                             t0cols["y"])),
+        "dist_join_agg": lambda r: _check_join("join_agg", r, t0cols,
+                                               w_by_key),
+        "dist_star": lambda r, w=_star_expected("star_k3", ccols, w_by_key,
+                                                None):
+            _check_star("dist_star", r, w),
+        "dist_topk": lambda r, w=_sort_expected("sort", t0cols): (
+            None if [tuple(x) for x in r] == w
+            else _fail(f"dist_topk: {r[:3]} vs {w[:3]}")),
+        "dist_distinct": lambda r, w=_distinct_expected(t0cols): (
+            None if [tuple(x) for x in r] == w
+            else _fail(f"dist_distinct: {r[:3]} vs {w[:3]}")),
+    }
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.parallel.mesh import mesh_for_config
+    meshes = {}
+    for shards in (DIST_SHARDS, 0):      # 0: one shard a visible device
+        with override(mesh_shards=shards):
+            devs = tuple(str(d) for d in mesh_for_config().devices)
+        if len(devs) >= 2 and devs not in meshes.values():
+            meshes[shards] = devs
+    _log(f"phase 4g: {torch.cuda.device_count()} device(s); the cells run "
+         f"on the meshes {list(meshes.values())} ({DIST_SHARDS} shards "
+         "round-robin over the devices, then one shard a device when there "
+         "are several and that mesh differs)")
+    for shards in meshes:
+        key = "mesh" if shards else "per_device"
+        out["timing"][key] = {}
+        for name, sql in DIST_SQL.items():
+            out["timing"][key][name] = _dist_cell(
+                db, name, sql, want[name], gpu, kernels, shards)
+    star = out["timing"]["mesh"]["dist_star"]["launches"]
+    if any(r["K3"] < DIST_SHARDS or r["K2"] < DIST_SHARDS for r in star):
+        raise AssertionError(f"dist_star: K3 / K2 not launched on every "
+                             f"shard: {star}")
+    # the device DISTINCT tier without pg_strom.distributed: one shard
+    out["timing"]["device_distinct"] = _dist_cell(
+        db, "dist_distinct", DIST_SQL["dist_distinct"],
+        want["dist_distinct"], gpu, kernels, 0, n_warm=1,
+        cfg={"distributed": False})
+    db.drop("t0c")
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(DIST_SHARDS)
+    _log(f"dryrun_multichip({DIST_SHARDS}) [{gpu}], flat and "
+         f"{out['dryrun']['mesh_2d']}: {out['dryrun']} in "
+         f"{time.perf_counter() - t0:.1f} s")
+    out["launches"] = {k: v.launches for k, v in kernels.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"phase 4g: kernel launches {out['launches']}; "
+         f"{out['seconds']:.1f} s [{gpu}]")
+    if out["launches"]["K2"] < 1 or out["launches"]["K3"] < 1:
+        raise AssertionError(f"phase 4g: K2 / K3 never launched "
+                             f"{out['launches']}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fail(msg: str):
+    raise AssertionError(msg)
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: the K4 path (use_pallas_reduce, the fused kernel off)
 # ---------------------------------------------------------------------------
 
@@ -2556,7 +2923,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "pg_strom_tpu_torch/ops/cuda/mxu_lookup.cu",
         "replaces": "pg_strom_tpu/ops/mxu_lookup.py:100",
-        "launches": joins["k3_launches"],
+        "launches": joins["k3_launches"] + joins["dist"]["launches"]["K3"],
         "max_abs_err": max(k3_err, joins["chunk"]["err"]),
         **{c: joins["chunk"][c] for c in cols},
     }, {

@@ -19,8 +19,11 @@ with them: window functions (`plan/window.py`), correlated subqueries
 (`plan/correlated.py`), the `pgstrom_*` introspection tables
 (`utils/introspect.py`), the workload models (`models/`), the SQL
 generator of the differential fuzz (`utils/sqlgen.py`) and the shell
-(`python -m pg_strom_tpu_torch`).  Plan routes whose executors are not
-ported yet raise NotImplementedError naming their ROADMAP item.
+(`python -m pg_strom_tpu_torch`).  COPY rides the native parallel CSV
+loader (`native/`, the reference's C++ runtime built from this package's
+copy of its source), and `pg_strom.distributed` routes joins,
+aggregations, stars and top-k over a single-controller device mesh
+(`parallel/`, `exec/dist_exec.py`; `config.mesh_shards` shards).
 
 The device is explicit (`config.device`, default "cuda"): with "cuda" and
 no GPU the port raises; "cpu" runs the kernels' plain PyTorch versions.

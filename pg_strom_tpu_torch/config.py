@@ -144,6 +144,11 @@ class _Config:
     # >1: 2D ("hosts", "chips") mesh — the shuffle exchange runs ICI-first
     # (all_to_all over chips within a host) then DCN (over hosts); 1 = flat
     dist_mesh_hosts: int = 1
+    # mesh shards (parallel/mesh.py): 0 = one per visible device
+    # (torch.cuda.device_count() on "cuda", 1 on "cpu"); N > 0 = N shards
+    # round-robin over the visible devices, e.g. 8 on the CPU for the
+    # tests (the reference rig's 8 virtual XLA devices)
+    mesh_shards: int = 0
     dist_group_slots: int = 1024          # per-device group-partial slots
     shuffle_partitions_per_device: int = 1
     skew_sample_rows: int = 4096          # rows sampled for heavy-hitter detection

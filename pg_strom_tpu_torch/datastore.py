@@ -38,9 +38,14 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _chunk_plane(n: int, dtype) -> np.ndarray:
-    """Zeroed plane for a padded query chunk (plain numpy: the native arena
-    allocator is not ported yet — ROADMAP queue 1, `native/` and COPY)."""
-    return np.zeros(n, dtype=dtype)
+    """Zeroed plane for a padded query chunk, allocated from the tracked
+    native arena (the reference allocates every data store from shmem —
+    shmem.c/datastore.c; small planes ride the slab tier, large ones the
+    buddy tier, and the arena's magic/redzone guards verify on release).
+    `arena_ndarray` gives plain numpy when the arena is full: capacity
+    never blocks a query."""
+    from .native import arena_ndarray
+    return arena_ndarray(n, dtype)
 
 
 _COL_UID = iter(range(1, 1 << 62))

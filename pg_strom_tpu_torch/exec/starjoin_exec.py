@@ -30,6 +30,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..config import config
 from ..datastore import Table
@@ -293,8 +294,21 @@ class StarJoinAggExecutor:
         hts_t = tuple(hts)
         pcap = tiered_capacity(chunk_capacity(self.probe.nrows), dev, pm)
 
+        # 3+-relation star over the device mesh: the fact shards
+        # data-parallel across the mesh, every dimension table and hash
+        # table REPLICATES (dims are small by the star shape), each shard
+        # runs the same fused star-join+agg function over its rows, and the
+        # host merges partials like chunks.  Any per-shard anomaly falls
+        # back to the single-device chunked flow below.
         if config.distributed:
-            self._run_distributed()
+            from ..parallel.mesh import mesh_size
+            if mesh_size() >= 2:
+                rows = self._run_distributed(
+                    pnames, pschema, ppred, jschema, probe_slots,
+                    build_slot_map, bound_groups, bound_aggs, hts_t,
+                    bplanes, states, displays, key_metas)
+                if rows is not None:
+                    return rows
 
         consume_args = (states, displays, key_metas, jnames, jlayout,
                         bound_groups, bound_aggs, hts_t, bplanes, fused)
@@ -327,13 +341,116 @@ class StarJoinAggExecutor:
             self._consume(cc, oh, *consume_args)
         pending.clear()
 
-    def _run_distributed(self):
-        """The reference shards the fact over the device mesh with the
-        dimensions replicated (its _run_distributed); the port has no mesh
-        yet."""
-        from ..plan.planner import _unported
-        _unported("distributed star join+aggregate (TpuStarJoinAgg)",
-                  "Distributed")
+    def _run_distributed(self, pnames, pschema, ppred, jschema, probe_slots,
+                         build_slot_map, bound_groups, bound_aggs, hts_t,
+                         bplanes, states, displays, key_metas):
+        """Mesh-distributed star: the fact's padded planes shard over the
+        mesh (resident in the tcache aux space, so a repeated query ships
+        0 bytes), the dimensions' hash tables and planes replicate to each
+        shard's device, and build_star_join_preagg_fn runs once a shard on
+        it — so K3 (a unique unsorted dimension) and K2 (grouped mxu sums)
+        launch on every shard.  Returns finalized rows, or None to fall
+        back."""
+        from ..parallel.mesh import mesh_for_config, mesh_size, per_shard
+        from ..parallel.shuffle import shard_host
+        from ..expr.lower_torch import planes_of_column
+        from ..datastore import Chunk
+
+        pm = self.perfmon
+        ndev = mesh_size()
+        mesh = mesh_for_config(ndev)
+        n = self.probe.nrows
+        shard_n = _next_pow2(max(-(-n // ndev), 1024))
+        Npad = shard_n * ndev
+        if Npad * len(pnames) > (1 << 28):
+            return None                  # keep the host staging copy sane
+
+        pcols = [self.probe.columns[nm] for nm in pnames]
+        rkey = ("dist_star_args", tuple(c.uid for c in pcols),
+                tuple(pnames), Npad, tuple(str(d) for d in mesh.devices))
+        cached = TCACHE.get_aux(rkey, pm)
+        if cached is not None:
+            shard_planes = cached
+            pm.bump("dist_resident_hits")
+        else:
+            hc = Chunk.from_table(self.probe, 0, n, Npad)
+            per_col = [[shard_host(p, mesh)
+                        for p in planes_of_column(hc.columns[nm])]
+                       for nm in pnames]
+            shard_planes = [tuple(tuple(pl[s] for pl in col)
+                                  for col in per_col)
+                            for s in range(ndev)]
+            pm.add_bytes("h2d", sum(p.nbytes for nm in pnames
+                                    for p in planes_of_column(
+                                        hc.columns[nm])))
+            TCACHE.put_aux(rkey, shard_planes, self.probe.name, pcols)
+
+        def replicate(tree, dev):
+            if isinstance(tree, torch.Tensor):
+                return tree.to(dev, non_blocking=True)
+            if isinstance(tree, dict):
+                return {k: replicate(v, dev) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(replicate(v, dev) for v in tree)
+            return tree
+
+        specs = [dict(s) for s in self._dim_specs]
+        base = build_star_join_preagg_fn(
+            pschema, specs, ppred, jschema, probe_slots, build_slot_map,
+            bound_groups, bound_aggs, self._G, self._strategy)
+        nrows_d = np.clip(n - shard_n * np.arange(ndev, dtype=np.int64),
+                          0, shard_n)
+        dims_on: dict = {}
+
+        def run_shard(s, planes):
+            dev = mesh.devices[s]
+            if str(dev) not in dims_on:
+                dims_on[str(dev)] = (replicate(hts_t, dev),
+                                     replicate(bplanes, dev))
+            hts_d, bplanes_d = dims_on[str(dev)]
+            return pm.device_call("tpustarjoinagg", base, hts_d, planes,
+                                  bplanes_d, int(nrows_d[s]), 0)
+        with pm.timer("dispatch"):
+            outs = per_shard(mesh, run_shard, shard_planes)
+        with pm.timer("device_wait"):
+            outs = fetch_host(outs)
+        if any(bool(np.asarray(o["join_ovf"]).any()) for o in outs):
+            return None
+        extract = extract_with_dicts(bound_aggs, self._agg_dicts_star)
+        st2: dict = {}
+        dp2: dict = {}
+        for d in range(ndev):
+            if nrows_d[d] == 0:
+                continue
+            for so in outs[d]["slices"]:
+                if int(so["err"]) != 0:
+                    return None
+                if bound_groups and "mxu_sums" in so:
+                    if bool(np.asarray(so.get("dense_fail", False))):
+                        return None
+                    collided, overflow = mxu_absorb(
+                        so, bound_groups, bound_aggs, key_metas, st2, dp2,
+                        merge_partials, extract, canon_group_key,
+                        dense_key=self._strategy == "mxu_dense")
+                    if collided or overflow:
+                        return None
+                else:
+                    if bound_groups and bool(so.get("collision", False)):
+                        return None
+                    absorb_preagg_out(so, bound_groups, bound_aggs,
+                                      key_metas, st2, dp2, pm,
+                                      self._agg_dicts_star,
+                                      whole_chunk=False)
+        for ck, parts in st2.items():
+            if ck not in states:
+                states[ck] = parts
+                displays[ck] = dp2[ck]
+            else:
+                states[ck] = [merge_partials(inst, a, b) for inst, a, b
+                              in zip(bound_aggs, states[ck], parts)]
+        pm.bump("dist_star_steps")
+        return finalize_agg_states(bound_groups, bound_aggs, states,
+                                   displays)
 
     def _initial_fanout(self, d: DimSpec) -> int:
         """Starting F for a multi-mode inner: the exact duplicate maximum

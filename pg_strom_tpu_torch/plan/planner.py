@@ -43,13 +43,6 @@ from .cost import (
 )
 
 
-def _unported(what: str, item: str):
-    """A plan route whose executor is not ported to PyTorch yet: raise,
-    naming its ROADMAP item, rather than answer on another path."""
-    raise NotImplementedError(
-        f"{what}: not ported yet (ROADMAP queue 1: {item})")
-
-
 def rename_table(tbl: Table, alias: str) -> Table:
     """View of tbl with columns named '<alias>.<col>' (shares Column data)."""
     return Table(name=alias, columns={f"{alias}.{c}": col
@@ -370,10 +363,17 @@ def plan_select(stmt: ast.SelectStmt, db: Database) -> PlannedQuery:
         if has_aggs and len(rels) == 2 and join_equis and not post_join \
                 and dec["agg"] and all(dec["join"].values()):
             if config.distributed:
-                _unported("distributed join+aggregate", "Distributed")
-            rows = _try_fused_join_agg(tables, rels, per_rel, join_equis,
-                                       group_exprs, items, having,
-                                       order_specs, perfmon)
+                # distributed shuffle join+agg over the device mesh
+                # (exec/dist_exec.py); ineligible shapes / device-err
+                # (CpuReCheck) / exhausted repartition ladders fall back to
+                # the single-device fused path below
+                rows = _try_dist_join_agg(tables, rels, per_rel, join_equis,
+                                          group_exprs, items, having,
+                                          order_specs, perfmon)
+            if rows is None:
+                rows = _try_fused_join_agg(tables, rels, per_rel, join_equis,
+                                           group_exprs, items, having,
+                                           order_specs, perfmon)
         elif has_aggs and len(rels) >= 3 and join_equis and not post_join \
                 and not has_outer and dec["agg"] and all(dec["join"].values()):
             # N-way fused star join+agg: one device node for the whole
@@ -815,6 +815,44 @@ def _try_star_join_agg(tables, rels, per_rel, join_equis, group_exprs,
     return _finish_agg(raw, group_exprs, aggrefs, items, having, order_specs)
 
 
+def _try_dist_join_agg(tables, rels, per_rel, join_equis, group_exprs,
+                       items, having, order_specs, perfmon):
+    """Distributed shuffle join+aggregate over the device mesh
+    (exec/dist_exec.py).  Returns finished rows, or None to fall back to
+    the single-device path (ineligible shape, device CpuReCheck, or an
+    exhausted overflow->repartition ladder)."""
+    a0, a1 = rels[0][0], rels[1][0]
+    keys_l, keys_r = [], []
+    for cj in join_equis:
+        s0 = cj.args[0].name.split(".", 1)[0]
+        s1 = cj.args[1].name.split(".", 1)[0]
+        if s0 == a0 and s1 == a1:
+            keys_l.append(cj.args[0])
+            keys_r.append(cj.args[1])
+        elif s1 == a0 and s0 == a1:
+            keys_l.append(cj.args[1])
+            keys_r.append(cj.args[0])
+        else:
+            return None
+    if not keys_l:
+        return None
+    aggrefs = _collect_aggrefs(items, having)
+    insts = _agg_instances(aggrefs)
+    from ..exec.dist_exec import DistJoinAggExecutor, DistFallback
+    ex = DistJoinAggExecutor(
+        tables[a0], tables[a1], keys_l, keys_r, group_exprs, insts,
+        probe_pred=and_all(per_rel[a0]) if per_rel[a0] else None,
+        build_pred=and_all(per_rel[a1]) if per_rel[a1] else None,
+        perfmon=perfmon)
+    if not ex.eligible():
+        return None
+    try:
+        raw = ex.run()
+    except DistFallback:
+        return None
+    return _finish_agg(raw, group_exprs, aggrefs, items, having, order_specs)
+
+
 def _agg_instances(aggrefs) -> list[AggInstance]:
     """The aggregate instances of a join's aggregates (args unbound: the
     join executors bind them to their joined layout)."""
@@ -890,14 +928,28 @@ def _run_agg(cur: Table, pred, group_exprs, items, having, order_specs,
             distinct=ag.distinct))
     bound_groups = [bind_columns(g, layout) for g in group_exprs]
     bpred = bind_columns(pred, layout) if pred is not None else None
-    if offload and config.distributed:
-        _unported("distributed aggregation", "Distributed")
-    # agg(DISTINCT x) runs on the host-exact tier inside PreAggExecutor
-    # (the reference's device dedup exchange rides the unported mesh path)
-    from ..exec.preagg_exec import PreAggExecutor
-    ex = PreAggExecutor(cur, bpred, bound_groups, insts, perfmon=perfmon,
-                        offload=offload)
-    raw = ex.run()   # rows: (group key vals..., agg vals...)
+    raw = None
+    if offload and (config.distributed
+                    or (config.device_distinct
+                        and any(i_.distinct for i_ in insts))):
+        # single-table data-parallel aggregation over the mesh; ALSO the
+        # device-assisted DISTINCT tier: an eligible agg(DISTINCT x) runs
+        # through the dedup-exchange step on the local mesh instead of the
+        # host row loop.  Ineligible shapes / device recheck fall back to
+        # the local executor.
+        from ..exec.dist_exec import DistPreAggExecutor, DistFallback
+        dx = DistPreAggExecutor(cur, bound_groups, insts, pred=bpred,
+                                perfmon=perfmon)
+        if dx.eligible():
+            try:
+                raw = dx.run()
+            except DistFallback:
+                raw = None
+    if raw is None:
+        from ..exec.preagg_exec import PreAggExecutor
+        ex = PreAggExecutor(cur, bpred, bound_groups, insts, perfmon=perfmon,
+                            offload=offload)
+        raw = ex.run()   # rows: (group key vals..., agg vals...)
     return _finish_agg(raw, group_exprs, aggrefs, items, having, order_specs)
 
 
@@ -1035,6 +1087,83 @@ def _column_values_at(c: Column, ii) -> list:
     return vals
 
 
+def _topk_rows_dist(cur: Table, names, schema, specs, bpred, k: int,
+                    bitems, perfmon) -> Optional[list[tuple]]:
+    """Distributed ORDER BY + LIMIT: shard rows over the mesh (pure data
+    parallelism — no shuffle), run the top-k once a shard on its device,
+    merge the ndev*k candidates on the host exactly like the chunked
+    single-device flow.  The padded shard planes stay resident in the
+    tcache aux space, so a repeated query ships 0 bytes.  Returns None to
+    fall back (device error, prefix-tie overflow, recheck rows)."""
+    import numpy as np
+    import torch
+    from ..parallel.mesh import mesh_for_config, mesh_size, per_shard
+    from ..exec.devcache import TCACHE, fetch_host
+    from ..expr.lower_torch import planes_of_column
+    from ..ops.sort import build_sort_topk_fn
+
+    cols = [cur.columns[n] for n in names]
+    for c in cols:
+        if c.recheck is not None and c.recheck.any():
+            return None
+    ndev = mesh_size()
+    mesh = mesh_for_config(ndev)
+    n = cur.nrows
+    shard_n = max(-(-n // ndev), 1024)
+    kk = min(k, shard_n)
+    fn = build_sort_topk_fn(schema, list(specs), bpred, kk)
+
+    rkey = ("dist_topk_args", tuple(c.uid for c in cols), tuple(names),
+            shard_n, tuple(str(d) for d in mesh.devices))
+    shard_planes = TCACHE.get_aux(rkey, perfmon)
+    if shard_planes is not None:
+        perfmon.bump("dist_resident_hits")
+    else:
+        def shard_of(s, dev):
+            lo, hi = min(s * shard_n, n), min((s + 1) * shard_n, n)
+            out = []
+            for c in cols:
+                pl = []
+                for p in planes_of_column(c):
+                    blk = np.zeros((shard_n,) + p.shape[1:], p.dtype)
+                    blk[:hi - lo] = p[lo:hi]
+                    pl.append(torch.from_numpy(blk).to(dev))
+                out.append(tuple(pl))
+            return tuple(out)
+        shard_planes = [shard_of(s, d) for s, d in enumerate(mesh.devices)]
+        perfmon.add_bytes("h2d", ndev * shard_n * sum(
+            p.dtype.itemsize * int(np.prod(p.shape[1:], dtype=np.int64))
+            for c in cols for p in planes_of_column(c)))
+        TCACHE.put_aux(rkey, shard_planes, cur.name, cols)
+    nrows_d = np.clip(n - shard_n * np.arange(ndev, dtype=np.int64),
+                      0, shard_n)
+    with perfmon.timer("dispatch"):
+        outs = per_shard(mesh, lambda s, pl: perfmon.device_call(
+            "tpusort_topk", fn, pl, int(nrows_d[s])), shard_planes)
+    with perfmon.timer("device_wait"):
+        outs = fetch_host(outs)
+    if any(int(o[3]) != 0 or bool(o[4]) for o in outs):
+        return None                    # single-device flow handles retries
+    nqual_total = sum(int(o[2]) for o in outs)
+    take = min(k, nqual_total)
+    if take == 0:
+        return []
+    nlanes = len(outs[0][1])
+    gids = np.concatenate([np.asarray(o[0], dtype=np.int64) + shard_n * s
+                           for s, o in enumerate(outs)])
+    lanes = np.concatenate([np.stack([np.asarray(t) for t in o[1]])
+                            for o in outs], axis=1)
+    order = np.lexsort(tuple([gids] + [lanes[i]
+                                       for i in range(nlanes - 1, -1, -1)]))
+    sel = gids[order[:take]]
+    out_rows = []
+    for gid in sel:
+        i = int(gid)
+        row = lambda s: cols[s].get(i)  # noqa: E731
+        out_rows.append(tuple(eval_expr_cpu(e, row) for e in bitems))
+    return out_rows
+
+
 def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
                perfmon) -> Optional[list[tuple]]:
     """Device ORDER BY + LIMIT: per-chunk packed sort -> k candidates with
@@ -1054,14 +1183,22 @@ def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
         return None
     if cur.nrows == 0:
         return []
-    if config.distributed:
-        # the reference shards the rows over the mesh (_topk_rows_dist)
-        _unported("distributed ORDER BY ... LIMIT (top-k)", "Distributed")
 
     names = cur.column_names
     schema = schema_from_chunk_columns(names, [cur.columns[n] for n in names])
     cap = tiered_capacity(chunk_capacity(cur.nrows), device(), perfmon)
     specs = [SortSpec(oe, d, nf) for oe, d, nf in borders]
+    if config.distributed:
+        from ..parallel.mesh import mesh_size
+        if mesh_size() >= 2:
+            # distributed top-k: rows shard over the mesh, each shard
+            # computes its local top-k, the host merges ndev*k candidates
+            # — the same merge the chunked flow uses.  None => fall through
+            # to the single-device path (overflow / recheck / error).
+            rows = _topk_rows_dist(cur, names, schema, specs, bpred, k,
+                                   bitems, perfmon)
+            if rows is not None:
+                return rows
     fn = build_sort_topk_fn(schema, specs, bpred, min(k, cap))
 
     pending = []
@@ -1358,6 +1495,20 @@ def _star_shape(rels, join_equis) -> bool:
     return _star_dims(rels, join_equis) is not None
 
 
+def _annotate_distributed(d: dict) -> None:
+    """Mark plan nodes whose executor may route over the device mesh
+    (pg_strom.distributed; runtime eligibility can still fall back)."""
+    if not config.distributed:
+        return
+    from ..parallel.mesh import mesh_size
+    ndev = mesh_size()
+    if ndev < 2:
+        return
+    h = int(getattr(config, "dist_mesh_hosts", 1) or 1)
+    shape = f"{h}x{ndev // h} hosts x chips" if h > 1 else f"{ndev} devices"
+    d["Distributed"] = f"mesh ({shape})"
+
+
 def _build_plan_tree(rels, per_rel, join_equis, post_join, has_aggs,
                      group_exprs, items, order_specs, stmt,
                      sub_plans, dec=None, node_costs=None) -> PlanNode:
@@ -1429,6 +1580,14 @@ def _build_plan_tree(rels, per_rel, join_equis, post_join, has_aggs,
             d["Group Key"] = ", ".join(fmt_expr(g) for g in group_exprs)
         d["output"] = ", ".join(fmt_expr(e) for _, e in items)
         kind = "TpuPreAgg" if dec["agg"] else "HashAggregate"
+        if kind == "TpuPreAgg":
+            _annotate_distributed(d)
+            if (config.device_distinct and not config.distributed
+                    and any(getattr(a, "distinct", False)
+                            for a in _collect_aggrefs(items, None))):
+                # the device-assisted DISTINCT tier (runtime eligibility
+                # can still fall back to the host row loop)
+                d["Distinct"] = "device dedup exchange"
         node = PlanNode(kind, d, [node], cost=node_costs["agg"])
     else:
         node = PlanNode("Result",

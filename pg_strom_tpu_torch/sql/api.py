@@ -396,6 +396,196 @@ def _exec_update(stmt: "ast.UpdateStmt", db: Database) -> Result:
 
 
 def _exec_copy(stmt: ast.CopyStmt, db: Database) -> Result:
-    """COPY rides the native parallel CSV loader in the reference."""
-    raise NotImplementedError(
-        "COPY: not ported yet (ROADMAP queue 1: native/ and COPY)")
+    tbl = db.get(stmt.name)
+    n = _copy_native(stmt, db, tbl)
+    if n is None:
+        n = _copy_python(stmt, db, tbl)
+    return Result([], [], [], command=f"COPY {n}")
+
+
+# COPY targets ride the native parallel loader for int/float/date/text/
+# numeric columns (the multi-threaded ingest analog of the reference's
+# opencl_num_threads worker pool; planes live in the native Arena);
+# PG-exact error surfaces and other types use the python path
+_NATIVE_COPY_T = None                  # the loader's worker Pool
+_NATIVE_TMAP = None
+
+
+def _native_tmap():
+    global _NATIVE_TMAP
+    if _NATIVE_TMAP is None:
+        from ..sqltypes import T
+        _NATIVE_TMAP = {T.INT2: "i", T.INT4: "i", T.INT8: "i",
+                        T.FLOAT4: "f", T.FLOAT8: "f",
+                        T.DATE: "d", T.TEXT: "t", T.NUMERIC: "n"}
+    return _NATIVE_TMAP
+
+
+def _copy_native(stmt: ast.CopyStmt, db: Database, tbl) -> int | None:
+    from ..sqltypes import T, STORAGE_DTYPE, INT_BOUNDS
+    from ..datastore import Table, Column
+    import numpy as _np
+    tmap = _native_tmap()
+    names = list(tbl.column_names)
+    ctypes_ = [tbl.columns[c].type for c in names]
+    if stmt.delimiter != "," or not names or \
+            any(t not in tmap for t in ctypes_):
+        return None
+    from ..native import load_csv2, Pool
+    with open(stmt.filename, "rb") as f:
+        data = f.read()
+    if stmt.header:
+        nl = data.find(b"\n")
+        data = data[nl + 1:] if nl >= 0 else b""
+    if b'"' in data or b"\\" in data:
+        return None                      # quoted/escaped: exact python path
+    global _NATIVE_COPY_T
+    if _NATIVE_COPY_T is None:
+        from ..config import config as _cfg
+        _NATIVE_COPY_T = Pool(_cfg.loader_threads)
+    planes, bad = load_csv2(data, [tmap[t] for t in ctypes_],
+                            pool=_NATIVE_COPY_T)
+    if bad:
+        return None                      # malformed fields: PG-exact errors
+    nrows_new = len(planes[0][0]) if planes and planes[0] else 0
+    new_cols = {}
+    for pl, cn, t in zip(planes, names, ctypes_):
+        old = tbl.columns[cn]
+        if t is T.NUMERIC:
+            nc = _native_numeric_column(pl, old)
+        elif t is T.TEXT:
+            nc = _native_text_column(pl, old)
+        else:
+            d, v = pl
+            if t in INT_BOUNDS and t is not T.INT8:
+                lo, hi = INT_BOUNDS[t]
+                if _np.any(v & ((d < lo) | (d > hi))):
+                    return None          # out-of-range: PG-exact error path
+            if t is T.INT8 and _np.any(v & ((d == _np.iinfo(_np.int64).max)
+                                            | (d == _np.iinfo(_np.int64).min))):
+                return None              # possible strtoll saturation
+            if t in (T.FLOAT4, T.FLOAT8):
+                f = d if t is T.FLOAT8 else d.astype(_np.float32)
+                if _np.any(v & ~_np.isfinite(f)):
+                    # legit 'Infinity'/'NaN' inputs AND silent overflow both
+                    # route to the exact path (PG raises on the latter)
+                    return None
+            nc = Column(type=t, data=_cat(old.data, d, STORAGE_DTYPE[t]),
+                        valid=_cat(old.valid, v, _np.bool_))
+        if nc is None:
+            return None
+        new_cols[cn] = nc
+    db.create(Table.from_columns(stmt.name, new_cols))
+    return nrows_new
+
+
+def _cat(old_arr, new_arr, dtype):
+    """Append planes; a fresh (empty) table adopts the native Arena plane
+    directly — bulk loads stay arena-resident (pgstrom_arena_info shows
+    them live for the table's lifetime), matching the reference's
+    shmem-resident data stores (shmem.c/datastore.c)."""
+    import numpy as _np
+    new_arr = _np.asarray(new_arr).astype(dtype, copy=False)
+    if old_arr is None or len(old_arr) == 0:
+        return new_arr
+    return _np.concatenate([old_arr, new_arr])
+
+
+def _native_numeric_column(pl, old):
+    """Canonical (mant, exp, dscale) Column from native (mant, dscale)
+    planes — replicating numeric_from_decimal's normalization exactly
+    (strip trailing-zero factors into exp); out-of-window values return
+    None => exact python fallback."""
+    import numpy as _np
+    from ..sqltypes import T
+    from ..datastore import Column
+    mant, dscale, v = pl
+    mant = mant.copy()
+    exp = -dscale.astype(_np.int64)
+    for _ in range(18):                      # strip factors of 10
+        m = v & (mant != 0) & (mant % 10 == 0)
+        if not m.any():
+            break
+        mant = _np.where(m, mant // 10, mant)
+        exp = _np.where(m, exp + 1, exp)
+    exp = _np.where(v & (mant == 0), 0, exp)
+    from ..config import config as _cfg
+    if _np.any(v & ((_np.abs(mant) > _cfg.numeric_max_mantissa)
+                    | (exp < _cfg.numeric_min_exponent)
+                    | (exp > _cfg.numeric_max_exponent))):
+        return None
+    nc = Column(type=T.NUMERIC, data=_cat(old.data, mant, _np.int64),
+                valid=_cat(old.valid, v, _np.bool_))
+    old_exp = old.num_exp if old.num_exp is not None \
+        else _np.zeros(0, _np.int32)
+    old_ds = old.num_dscale if old.num_dscale is not None \
+        else _np.zeros(0, _np.int32)
+    old_rc = old.recheck if old.recheck is not None \
+        else _np.zeros(0, bool)
+    nc.num_exp = _np.concatenate([old_exp, exp.astype(_np.int32)])
+    nc.num_dscale = _np.concatenate([old_ds, dscale.astype(_np.int32)])
+    nc.recheck = _np.concatenate([old_rc, _np.zeros(len(mant), bool)])
+    for i, d in getattr(old, "_exact_store", {}).items():
+        nc._exact[i] = d
+    return nc
+
+
+def _native_text_column(pl, old):
+    """Dictionary-encoded text Column from the native fixed-width bytes
+    plane: np.unique gives the bytewise-sorted dictionary + codes in one
+    vectorized pass; existing rows re-code into the merged dictionary."""
+    import numpy as _np
+    from ..sqltypes import T
+    from ..datastore import Column
+    d, v = pl
+    W = d.shape[1] if d.ndim == 2 else 1
+    sview = _np.ascontiguousarray(d).view(_np.dtype(f"S{max(W, 1)}")) \
+        .reshape(-1)
+    # one vectorized factorization over all rows; dictionary built from
+    # VALID values only (NULL rows carry zeroed planes)
+    uniq_all, inv = _np.unique(sview, return_inverse=True)
+    try:
+        uvals_all = [b.decode("utf-8") for b in uniq_all.tolist()]
+        valid_vals = {b.decode("utf-8")
+                      for b in _np.unique(sview[v]).tolist()} \
+            if v.any() else set()
+    except UnicodeDecodeError:
+        return None
+    if any("\x00" in s for s in valid_vals):
+        return None                      # NUL padding ambiguity: fallback
+    old_dict = list(old.dictionary or [])
+    merged = sorted(set(old_dict) | valid_vals, key=lambda s: s.encode())
+    code_of = {s: i for i, s in enumerate(merged)}
+    lut = _np.array([code_of.get(s, 0) for s in uvals_all], _np.int32) \
+        if len(uvals_all) else _np.zeros(0, _np.int32)
+    new_codes = (lut[inv].astype(_np.int32) if len(sview)
+                 else _np.zeros(0, _np.int32))
+    remap = _np.array([code_of[s] for s in old_dict], _np.int32) \
+        if old_dict else _np.zeros(0, _np.int32)
+    old_codes = remap[old.data.astype(_np.int64)] if old_dict \
+        else _np.zeros(len(old.data), _np.int32)
+    nc = Column(type=T.TEXT,
+                data=_np.concatenate([old_codes, new_codes]),
+                valid=_np.concatenate([old.valid, v]),
+                dictionary=merged)
+    return nc
+
+
+def _copy_python(stmt: ast.CopyStmt, db: Database, tbl) -> int:
+    import csv as _csv
+    from ..datastore import Table, column_from_values
+    names = list(tbl.column_names)
+    with open(stmt.filename, newline="") as f:
+        rd = _csv.reader(f, delimiter=stmt.delimiter)
+        rows = list(rd)
+    if stmt.header and rows:
+        rows = rows[1:]
+    new_cols = {}
+    for j, cn in enumerate(names):
+        c = tbl.columns[cn]
+        old = [c.get(i) for i in range(tbl.nrows)]
+        old.extend(_value_in(c.type, r[j]) if j < len(r) and r[j] != ""
+                   else None for r in rows)
+        new_cols[cn] = column_from_values(c.type, old)
+    db.create(Table.from_columns(stmt.name, new_cols))
+    return len(rows)

@@ -14,8 +14,8 @@ virtual tables materialized on access:
   pgstrom_tcache_info   — the device-resident chunk cache
   pgstrom_config_info   — every GUC with its current value
 
-The arena, slab and message-queue tables stay empty until the port's
-native/ module registers its arenas and queues (ROADMAP queue 1, item 7).
+native.data_arena() registers the ingest arena at its creation, so the
+arena and slab tables show the live planes of COPY loads and query chunks.
 """
 
 from __future__ import annotations

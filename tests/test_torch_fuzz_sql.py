@@ -7,8 +7,9 @@
 - Every statement runs through the JAX reference (device path), the
   port's device path (plain versions of the kernels on the CPU) and the
   port's host tier (pg_strom.enabled off), under `rand_cfg` of
-  tests/test_fuzz_sql.py with its distributed axis off (that axis waits
-  for ROADMAP item 8).  The three outcomes must be equal: rows as
+  tests/test_fuzz_sql.py, its distributed axis included: the port's mesh
+  has as many shards as the reference has devices (8 on the rig of
+  tests/conftest.py).  The three outcomes must be equal: rows as
   PostgreSQL text at extra_float_digits=-3, or the same error text.
   Unordered results compare as sorted multisets; there is no float
   tolerance and no greedy row matching.
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import random
 
+import jax
 import pytest
 
 import pg_strom_tpu as R
@@ -74,11 +76,6 @@ def test_generator_matches_reference(seed):
     assert _dml(p_sqlgen, seed) == _dml(r_sqlgen, seed)
 
 
-def _local(cfg: dict) -> dict:
-    """rand_cfg without its distributed axis."""
-    return dict(cfg, distributed=False)
-
-
 WAYS = ("reference", "port device", "port host")
 
 
@@ -90,7 +87,7 @@ def _run(way, sql, db, cfg, ordered):
     else:
         execute, override, error = P.execute, P.override, P.SqlError
         cfg = dict(cfg, device="cpu", enabled=way == "port device",
-                   debug_force_offload=True)
+                   debug_force_offload=True, mesh_shards=len(jax.devices()))
     try:
         with override(**cfg):
             r = execute(sql, db)
@@ -111,7 +108,6 @@ def dbs():
 def test_fuzz_port_vs_reference(dbs, seed):
     rdb, pdb = dbs
     cfg, stmts = _statements(p_sqlgen, seed)
-    cfg = _local(cfg)
     for i, (sql, ordered) in enumerate(stmts):
         ref, dev, host = (_run(w, sql, rdb if w == "reference" else pdb,
                                cfg, ordered) for w in WAYS)
@@ -124,7 +120,6 @@ def test_fuzz_port_vs_reference(dbs, seed):
 @pytest.mark.parametrize("seed", DML_SEEDS)
 def test_fuzz_dml_port_vs_reference(seed):
     for i, (tname, sql, cfg) in enumerate(_dml(p_sqlgen, seed)):
-        cfg = _local(cfg)
         outs = []
         for way in WAYS:
             rdb = build_fuzz_db()

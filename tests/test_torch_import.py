@@ -37,3 +37,28 @@ def test_port_imports_every_module_without_jax():
     count, loaded = r.stdout.strip().split(" ", 1)
     assert int(count) >= 20, r.stdout
     assert loaded == "[]", loaded
+
+
+_PROBE_NEW = r"""
+import sys
+sys.modules["jax"] = None
+import pg_strom_tpu_torch.native as N
+import pg_strom_tpu_torch.parallel.mesh, pg_strom_tpu_torch.parallel.shuffle
+import pg_strom_tpu_torch.parallel.dist, pg_strom_tpu_torch.parallel.dryrun
+import pg_strom_tpu_torch.exec.dist_exec, pg_strom_tpu_torch.models.pg_fixture
+print(N.pg_crc32(b"123456789") == 0xCBF43926,
+      any(k == "pg_strom_tpu" or k.startswith("pg_strom_tpu.")
+          for k in sys.modules))
+"""
+
+
+def test_native_and_parallel_import_without_jax():
+    """The subpackages of ROADMAP items 7 and 8 (native/, parallel/) and
+    their users import, and the native library builds and answers, with
+    jax blocked."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    r = subprocess.run([sys.executable, "-c", _PROBE_NEW], cwd=root,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["True", "False"], r.stdout

@@ -6,8 +6,9 @@ Each `pgstrom_*` table has the reference's columns.  On device="cpu"
 CUDA kernel library's sources with their build state, then the
 executor's plan memos; `pgstrom_tcache_info` shows the tables a device
 query left resident; `pgstrom_config_info` names the reference's settings.
-The arena, slab and message-queue tables are empty until the port's
-native/ module registers arenas (ROADMAP item 7).
+Since the port's native/ module (ROADMAP item 7), the arena and slab
+tables show its data arena, as the reference's do; no message queue is
+registered in either package, so that table stays empty.
 """
 
 from __future__ import annotations
@@ -113,8 +114,23 @@ def test_tcache_info_shows_resident_table(dbs):
 @pytest.mark.parametrize("name", ("pgstrom_arena_info", "pgstrom_slab_info",
                                   "pgstrom_mqueue_info"))
 def test_native_tables_are_empty_until_item_7(dbs, name):
-    _, pdb = dbs
-    assert _port(f"select * from {name}", pdb).rows == []
+    """Item 7 has landed: a device query's chunk planes come from the data
+    arena, which the arena table shows live and the slab table shows by
+    class, with the reference's columns and row counts; the queue table
+    stays empty in both packages."""
+    rdb, pdb = dbs
+    _port("select count(*), sum(x) from t", pdb)
+    r_execute("select count(*), sum(x) from t", rdb)
+    got = _port(f"select * from {name}", pdb)
+    want = r_execute(f"select * from {name}", rdb)
+    assert got.columns == want.columns
+    assert len(got.rows) == len(want.rows)
+    if name == "pgstrom_mqueue_info":
+        assert got.rows == []
+    elif name == "pgstrom_arena_info":
+        assert got.rows[0][1] == 1 << 28 and got.rows[0][3] >= 1
+    else:
+        assert [r[1] for r in got.rows] == [96, 240, 512, 1184, 2520]
 
 
 def test_config_info_names_the_reference_settings(dbs):
@@ -123,9 +139,12 @@ def test_config_info_names_the_reference_settings(dbs):
                                   pdb).rows}
     rnames = {r[0] for r in r_execute("select name from pgstrom_config_info",
                                       rdb).rows}
-    # the port adds `device` (cuda or cpu) and drops `fetch_block_first`,
-    # a read-back switch of the TPU runtime that the port has no use for
-    assert pnames == (rnames - {"fetch_block_first"}) | {"device"}
+    # the port adds `device` (cuda or cpu) and `mesh_shards` (the shard
+    # count of its mesh, where the reference counts jax devices) and drops
+    # `fetch_block_first`, a read-back switch of the TPU runtime that the
+    # port has no use for
+    assert pnames == (rnames - {"fetch_block_first"}) | {"device",
+                                                         "mesh_shards"}
     rows = dict(_port("select * from pgstrom_config_info", pdb).rows)
     assert rows["device"] == "cpu"
     assert rows["debug_force_offload"] == "True"

@@ -516,11 +516,29 @@ def test_vectorized_order_by_matches_reference(order):
     assert got == want
 
 
-def test_distributed_topk_raises(dbs):
-    """The reference shards ORDER BY ... LIMIT over its device mesh
-    (_topk_rows_dist); the port has no mesh yet and says so."""
-    _, pdb = dbs
-    with P.override(device="cpu", debug_force_offload=True,
-                    distributed=True):
-        with pytest.raises(NotImplementedError, match="Distributed"):
-            P.execute(LIMIT_QUERIES["packed_int"][0], pdb)
+@pytest.mark.parametrize("name", list(LIMIT_QUERIES))
+def test_distributed_topk_matches_reference(dbs, name, monkeypatch):
+    """ORDER BY ... LIMIT under pg_strom.distributed: the reference shards
+    the rows over its 8 CPU devices (_topk_rows_dist), the port over an
+    8-shard mesh, one top-k a shard and a host merge; both take the
+    distributed route (or both fall back) and give the same rows."""
+    from pg_strom_tpu.plan import planner as r_planner
+    from pg_strom_tpu_torch.plan import planner as p_planner
+    rdb, pdb = dbs
+    sql, _routes = LIMIT_QUERIES[name]
+    engaged = {}
+    for tag, mod in (("ref", r_planner), ("port", p_planner)):
+        orig = mod._topk_rows_dist
+
+        def spy(*a, _orig=orig, _tag=tag, **kw):
+            r = _orig(*a, **kw)
+            engaged[_tag] = r is not None
+            return r
+        monkeypatch.setattr(mod, "_topk_rows_dist", spy)
+    with R.override(debug_force_offload=True, distributed=True), \
+            P.override(device="cpu", debug_force_offload=True,
+                       distributed=True, mesh_shards=8, perfmon=True):
+        want, _ = _rows(r_ast, r_plan_query, RResult, sql, rdb)
+        got, _ = _rows(p_ast, p_plan_query, PResult, sql, pdb)
+    assert got == want
+    assert engaged.get("port") == engaged.get("ref") is not None, engaged

@@ -160,17 +160,47 @@ def test_copied_host_surface_matches_reference(dbs, sql):
     assert got.formatted(-3) == want.formatted(-3)
 
 
+def _dist_counts(counts: dict) -> dict:
+    return {k: v for k, v in counts.items()
+            if k.startswith("dist_") and k != "dist_prepare"}
+
+
+def _ref_run(sql, rdb):
+    """The reference's rows as text and its perfmon counters."""
+    from pg_strom_tpu.sql.api import Result as RResult
+    pq = r_plan_query(r_ast.parse(sql), rdb)
+    rows = pq.execute()
+    return (RResult(columns=pq.out_names, rows=rows,
+                    types=pq.out_types).formatted(-3),
+            dict(pq.perfmon.counts))
+
+
 @pytest.mark.parametrize("sql, cfg", [
-    # window functions run since the SQL surface was ported
-    # (ROUTED_QUERIES["window_rank"]); these routes still raise
-    ("SELECT key, sum(y) FROM t GROUP BY key", {"distributed": True}),
+    ("SELECT key, sum(y) FROM t GROUP BY key ORDER BY key",
+     {"distributed": True}),
     ("COPY t FROM 'absent.csv'", {}),
-])
-def test_unported_routes_raise_not_implemented(dbs, sql, cfg):
-    _, pdb = dbs
-    with _forced({"debug_force_offload": True, **cfg}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.execute(sql, pdb)
+], ids=["distributed_aggregation", "copy_missing_file"])
+def test_formerly_unported_routes_match_reference(dbs, sql, cfg):
+    """The routes that raised before the mesh and COPY were ported: the
+    distributed aggregation on an 8-shard mesh (the reference's 8 CPU
+    devices) gives the reference's rows and dist_* counters, and COPY
+    from a missing file the reference's error."""
+    rdb, pdb = dbs
+    with _forced({"debug_force_offload": True, "mesh_shards": 8,
+                  "perfmon": True, **cfg}), \
+            R.override(debug_force_offload=True, perfmon=True, **cfg):
+        if sql.startswith("COPY"):
+            with pytest.raises(FileNotFoundError) as want_err:
+                r_execute(sql, rdb)
+            with pytest.raises(FileNotFoundError) as got_err:
+                P.execute(sql, pdb)
+            assert str(got_err.value) == str(want_err.value)
+            return
+        want, rcounts = _ref_run(sql, rdb)
+        got, counts = _port_run(sql, pdb)
+    assert got.formatted(-3) == want
+    assert _dist_counts(counts) == _dist_counts(rcounts)
+    assert counts.get("dist_steps", 0) == 1, counts
 
 
 # name -> (sql, the port's perfmon counter its device route bumps)
@@ -334,8 +364,16 @@ def test_star4way_matches_reference(testdbs):
     assert counts.get("unported_host_exact", 0) == 0, counts
 
 
-def test_distributed_join_raises(testdbs):
-    _, pdb = testdbs
-    with _both({"distributed": True}):
-        with pytest.raises(NotImplementedError, match="Distributed"):
-            P.execute(JOIN_QUERIES["join_agg"], pdb)
+def test_distributed_join_matches_reference(testdbs):
+    """join_agg over an 8-shard mesh (the reference's 8 CPU devices): the
+    shuffle join+aggregate gives the reference's rows and dist_*
+    counters."""
+    rdb, pdb = testdbs
+    sql = JOIN_QUERIES["join_agg"]
+    with _both({"distributed": True, "perfmon": True}), \
+            P.override(mesh_shards=8):
+        want, rcounts = _ref_run(sql, rdb)
+        got, counts = _port_run(sql, pdb)
+    assert got.formatted(-3) == want
+    assert _dist_counts(counts) == _dist_counts(rcounts)
+    assert counts.get("dist_steps", 0) == 1, counts

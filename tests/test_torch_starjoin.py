@@ -328,12 +328,23 @@ def test_star_distinct_agg_declines(dbs):
     "select count(*), sum(t0.x), sum(t2dup.bval) from t0, t1, t2dup "
     "where t0.aid = t1.aid and t0.bid = t2dup.bid",
 ], ids=["star_distributes", "non_unique_dim_star_distributes"])
-def test_distributed_star_raises(dbs, sql):
-    _, pdb = dbs
-    with P.override(device="cpu", debug_force_offload=True,
+def test_distributed_star_matches_reference(dbs, sql):
+    """The star over the mesh: the fact shards over the reference's 8 CPU
+    devices and the port's 8-shard mesh, the dimensions replicate, each
+    shard runs the fused star function; rows and dist_star_steps equal."""
+    rdb, pdb = dbs
+    # the reference's K2 under shard_map cannot run in interpret mode on
+    # the CPU (Pallas wants `vma` on its outputs), so its shards take its
+    # plain mxu reduce; the port's take K2's plain version
+    with R.override(debug_force_offload=True, perfmon=True,
                     distributed=True):
-        with pytest.raises(NotImplementedError, match="Distributed"):
-            P.execute(sql, pdb)
+        want, rc = _run(r_ast, r_plan_query, RResult, sql, rdb)
+    with P.override(device="cpu", debug_force_offload=True, perfmon=True,
+                    distributed=True, mesh_shards=8):
+        got, pc = _run(p_ast, p_plan_query, PResult, sql, pdb)
+    assert got == want
+    assert pc.get("dist_star_steps", 0) == rc.get("dist_star_steps", 0) \
+        == 1, (pc, rc)
 
 
 def test_repeat_star_ships_zero_bytes(dbs):

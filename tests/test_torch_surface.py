@@ -1,13 +1,13 @@
 """The port's SQL surface and shell against the JAX reference.
 
 - tests/test_sql_surface.py and tests/test_grouping_sets.py case for case,
-  and the non-COPY DDL/DML cases of tests/test_ddl_cli.py: the reference's
+  and tests/test_ddl_cli.py's TestDDL (DDL, DML and COPY): the reference's
   test classes run here with their `execute` / `explain` redirected
   through both packages (tests/torch_differential.py), so every statement
   must give the port the reference's rows, or its error, exactly.
 - The shell (`pg_strom_tpu_torch.cli`): `run_stmt`, `\\d`, `run_file` and
   `\\demo` print what the reference's shell prints for the same input.
-- COPY raises NotImplementedError naming ROADMAP item 7.
+- The native COPY classes of test_ddl_cli.py: tests/test_torch_copy.py.
 - EXPLAIN with pg_strom.show_device_kernel prints the scan qual's traced
   graph, and otherwise the reference's plan text.
 """
@@ -68,26 +68,12 @@ class TestSinglePassRollup(_GroupingSetsDb, ref_gs.TestSinglePassRollup):
     pass
 
 
-# --- tests/test_ddl_cli.py: DDL and DML; COPY waits for item 7 -------------
+# --- tests/test_ddl_cli.py: DDL, DML and COPY ------------------------------
 
 class TestDDL(ref_ddl.TestDDL):
     @pytest.fixture()
     def db(self):
         return ref_ddl.db.__wrapped__()
-
-    test_copy_csv = None           # COPY: see test_copy_names_item_7
-
-
-def test_copy_names_item_7(tmp_path):
-    from pg_strom_tpu_torch.datastore import Database
-    from pg_strom_tpu_torch.sql import execute
-    f = tmp_path / "t.csv"
-    f.write_text("1\n")
-    pdb = Database()
-    with p_override(device="cpu"):
-        execute("create table t (x int)", pdb)
-        with pytest.raises(NotImplementedError, match="native/ and COPY"):
-            execute(f"copy t from '{f}'", pdb)
 
 
 # --- the shell -------------------------------------------------------------

@@ -13,20 +13,20 @@ reference's own assertion.
   both, and the two results are paired from then on.
 - The port runs on `device="cpu"` under every setting it shares with the
   reference's current config (the reference tests' own `override`s and
-  monkeypatches included), and with the reference's window tier cut-off.
+  monkeypatches included), with the reference's window tier cut-off, and
+  on a mesh of as many shards as the reference has devices (8 on the
+  rig of tests/conftest.py).
 - Rows must be equal as PostgreSQL text at extra_float_digits=-3, with the
   same column names and command tag; a statement without a top-level
   ORDER BY compares as a sorted multiset.  An error must have the same
-  class name and text.  EXPLAIN text must be equal, but for the
-  reference's annotation of its device DISTINCT tier, a route of ROADMAP
-  item 8.
+  class name and text.  EXPLAIN text must be equal.
 """
 
 from __future__ import annotations
 
-import re
 import weakref
 
+import jax
 from pg_strom_tpu.config import show_all as r_show_all
 from pg_strom_tpu.plan import window as r_window
 from pg_strom_tpu.sql import execute as r_execute, explain as r_explain
@@ -44,6 +44,7 @@ def mirrored_config() -> dict:
     shared = p_show_all()
     cfg = {k: v for k, v in r_show_all().items() if k in shared}
     cfg["device"] = "cpu"
+    cfg["mesh_shards"] = len(jax.devices())
     return cfg
 
 
@@ -65,15 +66,8 @@ def outcome(res, ordered: bool) -> tuple:
             tuple(rows if ordered else sorted(rows)))
 
 
-# EXPLAIN annotations of reference routes that wait for ROADMAP item 8
-# ("Distributed"): the device-assisted DISTINCT rides the mesh's dedup
-# exchange, so the port runs agg(DISTINCT) on its host-exact tier
-_ITEM_8_ANNOTATIONS = re.compile(
-    r"\n *Distinct: device dedup exchange(?=\n|$)")
-
-
 def explain_outcome(text: str) -> tuple:
-    return ("explain", _ITEM_8_ANNOTATIONS.sub("", text))
+    return ("explain", text)
 
 
 def error_outcome(e: BaseException) -> tuple:
