@@ -40,12 +40,15 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    SELECT key, sum(x), count(x), sum(y) FROM t WHERE x > 0.25 GROUP BY key
    through the planner: every chunk on K1, count and sum(y) exact against numpy int64, sum(x) to rel 1e-5; K1 launches
    counted over the cold and the five warm runs;
-4b. general grouped aggregation: t0 of models/testdb.py at 2^27 rows
-   (tcache_size_mb=32768) and its queries agg_group, rollup, filter and
+4b. general grouped aggregation: t0 of models/testdb.py at 2^27 rows at
+   the default cache budget (tcache_size_mb 0: 40% of the card's memory;
+   the budget and t0's resident plane bytes logged, 53 B a row with two
+   planes a float8 column) and its queries agg_group, rollup, filter and
    agg_nogrp through the planner: every chunk on the device, none
    replayed, K2 launched (agg_group cold at G = 1024 and warm at G = 32,
    rollup on its first rung), counts exact
-   and float8 sums / averages to rel 1e-9 against numpy;
+   and float8 sums / averages to rel 1e-9 against numpy; every warm run
+   on the resident planes (no cache miss, 0 H2D bytes);
 4d. joins in 4b's database: the dimensions t1..t4 (int4 keys 1..40000)
    and t6 (the same keys in a seeded random order), then join_agg,
    star_group and t0 x t6 cold and warm: every probe chunk on the
@@ -94,6 +97,18 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    counter asserted (a DistFallback fails), the warm runs on resident
    shards with 0 H2D bytes; dist_distinct once more under device_distinct
    without distributed; dryrun_multichip(4), flat and (2, 2);
+4h. float8 across the whole double range (after 4b-4g, a new database):
+   f8(k int4 0..31, v and w float8 with 5% NULL; v holds 0 and -0.0, NaN,
+   +-inf, 5e-324, 1e-310, 1e-300, 1e-38, 1e37, 3.5e38, 1e300, 1.7e308 and
+   normal values, as in tests/test_torch_float8_native.py) at 2^(N-1)
+   rows, about 1.5 GB of planes, and d8(v, label): compares, ORDER BY ...
+   LIMIT both ways, GROUP BY v, min / max / count, count(DISTINCT v), a
+   join+aggregate on the float8 key and sum(w) where v < -1e37, each cold
+   and 3 warm under perfmon, exact against numpy, none replayed
+   (recheck_chunks 0), K2 launched; then f8 at 2^16 rows: the same
+   queries and sum / avg / stddev over only-tiny and only-huge groups
+   (cold and 3 warm: each replays) equal to the port's host tier as
+   PostgreSQL text, recheck_chunks and replayed rows logged;
 4c. the K4 path in 4b's database: agg_group with the fused kernel off
    and use_pallas_reduce on, cold and 5 warm runs: K4 launched on every
    chunk of each run, rows equal to the K2 path's as PostgreSQL text;
@@ -1122,12 +1137,44 @@ def _run_t0(db, name: str, force: bool = False):
     return rows, dict(pq.perfmon.counts), time.perf_counter() - t0
 
 
+def _t0_plane_bytes(db, n: int, cap: int, nchunks: int) -> dict:
+    """t0's resident planes after its first query: the cache entry's bytes
+    must be the chunks' padded rows times the bytes a row of
+    planes_of_column (two planes a float8 column, no bits plane)."""
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.exec.devcache import TCACHE
+    from pg_strom_tpu_torch.expr.lower_torch import planes_of_column
+    cols = db.tables["t0"].columns
+    row = sum(p.dtype.itemsize for c in cols.values()
+              for p in planes_of_column(c))
+    for name, c in cols.items():
+        if c.type is T.FLOAT8 and len(planes_of_column(c)) != 2:
+            raise AssertionError(f"t0.{name}: float8 with "
+                                 f"{len(planes_of_column(c))} planes")
+    ent = [r for r in TCACHE.info_rows()
+           if r["table_name"] == "t0" and r["kind"] == "chunks"]
+    if not ent or ent[0]["nbytes"] != nchunks * cap * row:
+        raise AssertionError(f"t0's cache entry {ent}: expected "
+                             f"{nchunks} x {cap} rows x {row} B")
+    _log(f"t0 planes: {ent[0]['nbytes']} B resident ({row} B a row over "
+         f"{nchunks} x {cap} padded rows, {n} rows)")
+    return {"nbytes": ent[0]["nbytes"], "bytes_per_row": row}
+
+
+def _t0_resident_h2d(db, name: str, force: bool, data) -> int:
+    """H2D bytes of one more warm run of `name` under perfmon (the timed
+    runs keep perfmon off)."""
+    rows, counts, nbytes, _ = _run_qp(db, T0_SQL[name],
+                                      {"debug_force_tpupreagg": force})
+    _check_t0(name, rows, data)
+    return int(nbytes.get("h2d", 0))
+
+
 def phase_testdb(seed: int, log2n: int, gpu: str,
                  k4_parent: str | None = None,
                  window_rows_log2: int = 27) -> dict:
     """agg_group, rollup, filter and agg_nogrp over a 2^log2n-row t0."""
     import torch
-    from pg_strom_tpu_torch import override
     from pg_strom_tpu_torch.config import config
     from pg_strom_tpu_torch.exec.devcache import TCACHE, chunk_capacity
     from pg_strom_tpu_torch.ops import preagg_fused as pf
@@ -1135,64 +1182,82 @@ def phase_testdb(seed: int, log2n: int, gpu: str,
     t0 = time.perf_counter()
     db, data = _t0_db(seed + 1, n)
     _log(f"t0: {n} rows generated in {time.perf_counter() - t0:.1f} s")
-    nchunks = -(-n // chunk_capacity(n))
+    cap = chunk_capacity(n)
+    nchunks = -(-n // cap)
     out = {"timing": {}}
     TCACHE.clear()
-    with override(tcache_size_mb=32768):
-        _log(f"t0: tcache_size_mb={config.tcache_size_mb} "
-             f"chunk_rows={config.chunk_rows} chunks={nchunks}")
-        pf.fused_cuda.launches = 0
-        for name in ("agg_group", "rollup", "filter", "agg_nogrp"):
+    budget = TCACHE.budget_bytes()
+    _log(f"t0: tcache_size_mb={config.tcache_size_mb} (0: from the device) "
+         f"-> budget {budget} B ({budget >> 20} MiB) of the card's "
+         f"{torch.cuda.get_device_properties(0).total_memory} B; "
+         f"chunk_rows={config.chunk_rows} chunks={nchunks}")
+    if config.tcache_size_mb != 0:
+        raise AssertionError("phase 4b runs at the default cache budget")
+    pf.fused_cuda.launches = 0
+    for name in ("agg_group", "rollup", "filter", "agg_nogrp"):
+        before = pf.fused_cuda.launches
+        force = False
+        rows, counts, cold = _run_t0(db, name)
+        if not (counts.get("device_chunks", 0)
+                or counts.get("recheck_chunks", 0)):
+            _log(f"t0 {name}: the cost model kept the query on the host "
+                 f"({cold * 1e3:.3f} ms); rerun with "
+                 "debug_force_tpupreagg")
+            force = True
+            rows, counts, cold = _run_t0(db, name, force)
+        k2 = pf.fused_cuda.launches - before
+        _log(f"t0 {name}: cold {cold * 1e3:.3f} ms [{gpu}], K2 launches "
+             f"{k2}, perfmon {counts}")
+        if name == "agg_group":
+            out["planes"] = _t0_plane_bytes(db, n, cap, nchunks)
+        dev = counts.get("device_chunks", 0)
+        if (counts.get("recheck_chunks", 0) or
+                counts.get("unported_host_exact", 0) or dev != nchunks):
+            raise AssertionError(f"t0 {name}: perfmon {counts}, "
+                                 f"expected {nchunks} device chunks and "
+                                 "no replay")
+        if name in ("agg_group", "rollup") and k2 < 1:
+            raise AssertionError(f"t0 {name}: K2 never launched")
+        _check_t0(name, rows, data)
+        ladder = {c: counts.get(c, 0) for c in
+                  ("salt_retries", "sort_fallbacks", "dense_fallbacks")}
+        warm, k2w = [], []
+        loads = (TCACHE.misses, TCACHE.streamed)
+        for _ in range(5 if name in ("agg_group", "rollup") else 1):
             before = pf.fused_cuda.launches
-            force = False
-            rows, counts, cold = _run_t0(db, name)
-            if not (counts.get("device_chunks", 0)
-                    or counts.get("recheck_chunks", 0)):
-                _log(f"t0 {name}: the cost model kept the query on the host "
-                     f"({cold * 1e3:.3f} ms); rerun with "
-                     "debug_force_tpupreagg")
-                force = True
-                rows, counts, cold = _run_t0(db, name, force)
-            k2 = pf.fused_cuda.launches - before
-            _log(f"t0 {name}: cold {cold * 1e3:.3f} ms [{gpu}], K2 launches "
-                 f"{k2}, perfmon {counts}")
-            dev = counts.get("device_chunks", 0)
-            if (counts.get("recheck_chunks", 0) or
-                    counts.get("unported_host_exact", 0) or dev != nchunks):
-                raise AssertionError(f"t0 {name}: perfmon {counts}, "
-                                     f"expected {nchunks} device chunks and "
-                                     "no replay")
-            if name in ("agg_group", "rollup") and k2 < 1:
-                raise AssertionError(f"t0 {name}: K2 never launched")
+            rows, counts, dt = _run_t0(db, name, force)
             _check_t0(name, rows, data)
-            ladder = {c: counts.get(c, 0) for c in
-                      ("salt_retries", "sort_fallbacks", "dense_fallbacks")}
-            warm, k2w = [], []
-            for _ in range(5 if name in ("agg_group", "rollup") else 1):
-                before = pf.fused_cuda.launches
-                rows, counts, dt = _run_t0(db, name, force)
-                _check_t0(name, rows, data)
-                warm.append(dt)
-                k2w.append(pf.fused_cuda.launches - before)
-            if name == "agg_group" and min(k2w) < 1:
-                raise AssertionError("t0 agg_group: the warm run skipped K2")
-            med = statistics.median(warm)
-            out["timing"][name] = {"cold_ms": cold * 1e3, "forced": force,
-                                   "warm_ms": med * 1e3,
-                                   "warm_all_ms": [w * 1e3 for w in warm]}
-            _log(f"t0 {name} [{gpu}]: exact vs numpy; ladder {ladder}; "
-                 f"cold {cold * 1e3:.3f} ms, warm median {med * 1e3:.3f} ms "
-                 f"of {[round(w * 1e3, 3) for w in warm]} "
-                 f"(K2 launches per warm run {k2w}, warm perfmon {counts})")
-        out["k2_launches"] = pf.fused_cuda.launches
-        _log(f"t0: K2 launches {pf.fused_cuda.launches}")
-        out["chunk"] = _time_k2_chunk(db, gpu)
-        out["k4"] = phase_k4_path(db, data, nchunks, gpu, k4_parent)
-        # 4d, 4e and 4f run inside this database so that t0 is built and
-        # uploaded once
-        out["joins"] = phase_joins(db, seed, gpu, window_rows_log2)
-        out["k2_launches"] += out["joins"]["star_sort"]["k2_launches"]
-        out["k2_launches"] += out["joins"]["dist"]["launches"]["K2"]
+            warm.append(dt)
+            k2w.append(pf.fused_cuda.launches - before)
+            if counts.get("tcache_misses", 0) or not counts.get("tcache_hits"):
+                raise AssertionError(f"t0 {name}: a warm run missed the "
+                                     f"table cache: perfmon {counts}")
+        h2d = _t0_resident_h2d(db, name, force, data)
+        if (TCACHE.misses, TCACHE.streamed) != loads or h2d:
+            raise AssertionError(f"t0 {name}: t0 did not stay resident "
+                                 f"(cache misses / streamed chunks "
+                                 f"{loads} -> {(TCACHE.misses, TCACHE.streamed)}"
+                                 f", H2D {h2d} B)")
+        if name == "agg_group" and min(k2w) < 1:
+            raise AssertionError("t0 agg_group: the warm run skipped K2")
+        med = statistics.median(warm)
+        out["timing"][name] = {"cold_ms": cold * 1e3, "forced": force,
+                               "warm_ms": med * 1e3,
+                               "warm_all_ms": [w * 1e3 for w in warm]}
+        _log(f"t0 {name} [{gpu}]: exact vs numpy; ladder {ladder}; "
+             f"cold {cold * 1e3:.3f} ms, warm median {med * 1e3:.3f} ms "
+             f"of {[round(w * 1e3, 3) for w in warm]} "
+             f"(K2 launches per warm run {k2w}, warm perfmon {counts}); "
+             f"resident: no cache miss, 0 H2D bytes")
+    out["k2_launches"] = pf.fused_cuda.launches
+    _log(f"t0: K2 launches {pf.fused_cuda.launches}")
+    out["chunk"] = _time_k2_chunk(db, gpu)
+    out["k4"] = phase_k4_path(db, data, nchunks, gpu, k4_parent)
+    # 4d, 4e and 4f run inside this database so that t0 is built and
+    # uploaded once
+    out["joins"] = phase_joins(db, seed, gpu, window_rows_log2)
+    out["k2_launches"] += out["joins"]["star_sort"]["k2_launches"]
+    out["k2_launches"] += out["joins"]["dist"]["launches"]["K2"]
     del db
     TCACHE.clear()
     torch.cuda.empty_cache()
@@ -2677,6 +2742,370 @@ def _time_k4(db, gpu: str, parent=None) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: float8 across the whole double range, IEEE on the card
+# ---------------------------------------------------------------------------
+
+F8_TINY = (5e-324, 1e-310, 1e-300, 1e-38)
+F8_HUGE = (1e37, 3.5e38, 1e300)
+F8_SPECIAL = (0.0, -0.0, math.nan, math.inf, -math.inf, 1.7e308, -1.7e308,
+              1e300, 5e-324, 1e-38)
+# compares, ORDER BY ... LIMIT, GROUP BY the float8, min / max, DISTINCT and
+# a join on a float8 key: none of them may replay a chunk on the host
+F8_SQL = {
+    "where_huge": "select k, v, w from f8 where v > 1e37 and w > 1500",
+    "where_tiny": "select k, v, w from f8 where v < 0 and v > -1e-30 "
+                  "and w > 1550",
+    "count_subnormal": "select count(*) from f8 where v = 1e-310",
+    "count_v_ge_w": "select count(*) from f8 where v >= w",
+    "topk_asc": "select k, v, w from f8 order by v, k, w limit 25",
+    "topk_desc": "select k, v, w from f8 order by v desc, k, w limit 25",
+    "group_by_v": "select v, count(*) from f8 group by v order by v",
+    "min_max": "select k, min(v), max(v), count(v) from f8 group by k "
+               "order by k",
+    "count_distinct": "select k, count(distinct v) from f8 group by k "
+                      "order by k",
+    "join_agg": "select d8.label, count(*) from f8 join d8 on f8.v = d8.v "
+                "group by d8.label order by 1",
+    "sum_w_where_huge": "select k, sum(w), avg(w), count(w) from f8 "
+                        "where v < -1e37 group by k order by k",
+}
+# sums whose float8 quantity leaves the lanes' domain: each replays
+F8_SUM_SQL = {
+    f"{agg}_{grp}": f"select k, {agg}(v) from f8 where k % 4 = {m} "
+                    "group by k order by k"
+    for grp, m in (("tiny", 1), ("huge", 2))
+    for agg in ("sum", "avg", "stddev")}
+F8_CFG = {"debug_force_offload": True, "debug_force_tpupreagg": True}
+# rows of the f8 that is held to the host tier (a host replay of 2^26 rows
+# takes minutes)
+F8_HOST_ROWS_LOG2 = 16
+
+
+def _f8_values(rng, n: int, k):
+    """v by k % 4: 0 normal (a discrete set), 1 tiny only, 2 huge only (both
+    with random signs), 3 the specials, tiny, huge and normal mixed (the
+    draw of tests/test_torch_float8_native.py)."""
+    import numpy as np
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    normal = rng.integers(-2000, 2000, n) / 16.0
+    tiny = sign * np.asarray(F8_TINY)[rng.integers(0, len(F8_TINY), n)]
+    huge = sign * np.asarray(F8_HUGE)[rng.integers(0, len(F8_HUGE), n)]
+    pool = np.concatenate([F8_SPECIAL, -np.asarray(F8_TINY), F8_HUGE,
+                           -np.asarray(F8_HUGE), [1.5, -2.25, 100.0]])
+    mixed = pool[rng.integers(0, len(pool), n)]
+    return np.choose(k % 4, [normal, tiny, huge, mixed])
+
+
+def _f8_db(seed: int, n: int):
+    """A port Database with f8(k int4 0..31, v float8, w float8; 5% NULL
+    each) and d8(v float8, label int4): one row per SQL-distinct value of
+    v's specials, tiny and huge pools.  Returns (db, numpy columns)."""
+    import numpy as np
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.datastore import (Database, Table,
+                                              column_from_numpy as cn)
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 32, n, dtype=np.int32)
+    v = _f8_values(rng, n, k)
+    w = rng.integers(-100000, 100000, n) / 64.0
+    vv = rng.random(n) > 0.05
+    wv = rng.random(n) > 0.05
+    dv = np.asarray([0.0, math.nan, math.inf, -math.inf, 1.7e308, -1.7e308]
+                    + [s * x for x in F8_TINY + F8_HUGE for s in (1.0, -1.0)]
+                    + [1.5, -2.25])
+    db = Database()
+    db.create(Table.from_columns("f8", {"k": cn(T.INT4, k),
+                                        "v": cn(T.FLOAT8, v, vv),
+                                        "w": cn(T.FLOAT8, w, wv)}))
+    db.create(Table.from_columns("d8", {
+        "v": cn(T.FLOAT8, dv),
+        "label": cn(T.INT4, np.arange(len(dv), dtype=np.int32) * 10)}))
+    return db, {"k": k, "v": v, "vv": vv, "w": w, "wv": wv, "dv": dv}
+
+
+def _f8_canon(a):
+    """Float8 bits with PostgreSQL's equality: -0 is 0, one NaN."""
+    import numpy as np
+    a = np.asarray(a, np.float64)
+    a = np.where(a == 0, 0.0, a)
+    return np.where(np.isnan(a), np.nan, a).view(np.int64)
+
+
+def _f8_okey(a):
+    """int64 keys in PostgreSQL's float8 order (NaN above +inf)."""
+    import numpy as np
+    b = _f8_canon(a)
+    return np.where(b < 0, -1 - (b & np.int64((1 << 63) - 1)), b)
+
+
+def _f8_expected(name: str, c):
+    """numpy's answer to F8_SQL[name]."""
+    import numpy as np
+    k, v, vv, w, wv = c["k"], c["v"], c["vv"], c["w"], c["wv"]
+    nan = np.isnan(v)
+    if name in ("where_huge", "where_tiny"):
+        m = (vv & wv & (((v > 1e37) | nan) & (w > 1500)
+                        if name == "where_huge" else
+                        (v < 0) & (v > -1e-30) & (w > 1550)))
+        o = np.lexsort((w[m], _f8_okey(v[m]), k[m]))
+        return k[m][o], v[m][o], w[m][o]
+    if name == "count_subnormal":
+        return int((vv & (v == 1e-310)).sum())
+    if name == "count_v_ge_w":
+        return int((vv & wv & ((v >= w) | nan)).sum())
+    if name in ("topk_asc", "topk_desc"):
+        # ASC puts NULLs last, DESC (PostgreSQL's default) first; the ties
+        # order by k, then w with its NULLs last.  The rows at or below the
+        # 25th primary key are the only candidates.
+        ok = _f8_okey(v)
+        big = np.iinfo(np.int64)
+        prim = (np.where(vv, ok, big.max) if name == "topk_asc"
+                else np.where(vv, -ok, big.min))
+        cand = np.flatnonzero(prim <= np.partition(prim, 24)[24])
+        o = cand[np.lexsort((np.where(wv[cand], w[cand], 0.0), ~wv[cand],
+                             k[cand], prim[cand]))][:25]
+        return k[o], np.where(vv[o], v[o], math.nan), vv[o], \
+            np.where(wv[o], w[o], math.nan), wv[o]
+    if name == "group_by_v":
+        keys, cnt = np.unique(_f8_okey(v[vv]), return_counts=True)
+        return keys, cnt, int((~vv).sum())
+    if name == "min_max":
+        out = []
+        for g in range(32):
+            x = v[vv & (k == g)]
+            fin = x[~np.isnan(x)]
+            lo = fin.min() if len(fin) else math.nan
+            hi = math.nan if np.isnan(x).any() else x.max()
+            out.append((g, lo, hi, len(x)))
+        return out
+    if name == "count_distinct":
+        return [(g, len(np.unique(_f8_canon(v[vv & (k == g)]))))
+                for g in range(32)]
+    if name == "join_agg":
+        keys, cnt = np.unique(_f8_canon(v[vv]), return_counts=True)
+        by = dict(zip(keys.tolist(), cnt.tolist()))
+        return [(i * 10, by[b]) for i, b in enumerate(_f8_canon(c["dv"]))
+                if b in by]
+    if name == "sum_w_where_huge":
+        m = vv & (v < -1e37)
+        mw = m & wv
+        n_ = np.bincount(k[m], minlength=32)
+        cnt = np.bincount(k[mw], minlength=32)
+        s = np.bincount(k[mw], weights=w[mw], minlength=32)
+        return [(g, s[g], s[g] / cnt[g], int(cnt[g])) for g in range(32)
+                if n_[g]]
+    raise KeyError(name)
+
+
+def _f8_same(a, b) -> bool:
+    """Float8 values equal under PostgreSQL's equality (NaN = NaN)."""
+    return bool(_f8_canon([a])[0] == _f8_canon([b])[0])
+
+
+def _f8_check(name: str, rows, want) -> None:
+    """rows of F8_SQL[name] against _f8_expected's answer."""
+    import numpy as np
+    bad = None
+    if name in ("where_huge", "where_tiny"):
+        # the WHERE keeps no NULL v or w
+        gk, gv, gw = (np.asarray([r[i] for r in rows], np.float64)
+                      for i in range(3))
+        o = np.lexsort((gw, _f8_okey(gv), gk))
+        got = (gk[o].astype(np.int64), gv[o], gw[o])
+        if not (len(got[0]) == len(want[0])
+                and np.array_equal(got[0], want[0])
+                and np.array_equal(got[1].view(np.int64),
+                                   want[1].view(np.int64))
+                and np.array_equal(got[2], want[2])):
+            bad = f"{len(rows)} rows vs {len(want[0])}"
+    elif name in ("count_subnormal", "count_v_ge_w"):
+        if rows != [(want,)]:
+            bad = f"{rows} vs {want}"
+    elif name in ("topk_asc", "topk_desc"):
+        wk, wv_, wvv, ww, wwv = want
+        exp = [(int(a), float(b) if n1 else None, float(d) if n2 else None)
+               for a, b, n1, d, n2 in zip(wk, wv_, wvv, ww, wwv)]
+        if len(rows) != len(exp) or any(
+                r[0] != e[0] or (r[1] is None) != (e[1] is None)
+                or (r[1] is not None and not _f8_same(r[1], e[1]))
+                or r[2] != e[2] for r, e in zip(rows, exp)):
+            bad = f"{rows[:3]} vs {exp[:3]}"
+    elif name == "group_by_v":
+        keys, cnt, nnull = want
+        body = [r for r in rows if r[0] is not None]
+        got = (_f8_okey([r[0] for r in body]), [r[1] for r in body])
+        if not (np.array_equal(got[0], keys) and got[1] == cnt.tolist()
+                and rows[-1] == (None, nnull)):
+            bad = f"{len(rows)} groups vs {len(keys) + 1}"
+    elif name == "min_max":
+        if len(rows) != len(want) or any(
+                r[0] != e[0] or not _f8_same(r[1], e[1])
+                or not _f8_same(r[2], e[2]) or r[3] != e[3]
+                for r, e in zip(rows, want)):
+            bad = f"{rows[:3]} vs {want[:3]}"
+    elif name == "sum_w_where_huge":
+        if len(rows) != len(want) or any(
+                r[0] != e[0] or r[3] != e[3] or not _close(r[1], e[1])
+                or not _close(r[2], e[2]) for r, e in zip(rows, want)):
+            bad = f"{rows[:3]} vs {want[:3]}"
+    elif [tuple(r) for r in rows] != want:
+        bad = f"{rows[:4]} vs {want[:4]}"
+    if bad:
+        raise AssertionError(f"4h {name}: differs from numpy: {bad}")
+
+
+def _f8_sum_expected(name: str, c) -> list:
+    """numpy's sums in PostgreSQL's row order (a sequential cumsum), avg
+    as sum / count, stddev to rel 1e-9; stddev over huge values overflows
+    in PostgreSQL (None: the query must fail with its error)."""
+    import numpy as np
+    agg, grp = name.split("_")
+    if name == "stddev_huge":
+        return None
+    k, v, vv = c["k"], c["v"], c["vv"]
+    out = []
+    for g in range(1 if grp == "tiny" else 2, 32, 4):
+        x = v[vv & (k == g)]
+        s = float(np.cumsum(x)[-1])
+        out.append((g, float(np.std(x, ddof=1)) if agg == "stddev"
+                    else s / len(x) if agg == "avg" else s))
+    return out
+
+
+def _run_text(db, sql: str, cfg: dict):
+    """(('rows', rows as text) or ('error', class, text), rows, counts,
+    seconds) of one query under perfmon; rows of a query without ORDER BY
+    are sorted."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    from pg_strom_tpu_torch.sql.api import Result
+    t0 = time.perf_counter()
+    try:
+        with override(perfmon=True, **cfg):
+            pq = plan_query(ast.parse(sql), db)
+            rows = pq.execute()
+    except Exception as e:              # compared with the host tier's
+        return ("error", type(e).__name__, str(e)), None, {}, \
+            time.perf_counter() - t0
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    text = Result(columns=pq.out_names, rows=rows,
+                  types=pq.out_types).formatted(-3)
+    if " order by " not in sql:
+        text = sorted(text)
+    return ("rows", tuple(text)), rows, dict(pq.perfmon.counts), dt
+
+
+def _device_launched(counts) -> int:
+    return sum(v for c, v in counts.items()
+               if c.startswith("kernel ") or c == "dist_steps")
+
+
+def phase_float8(seed: int, log2n: int, host_log2n: int, gpu: str) -> dict:
+    """f8 at 2^log2n rows: F8_SQL cold and 3 warm on the device, exact
+    against numpy, none replayed; then a 2^host_log2n-row f8 of the same
+    draw: F8_SQL and F8_SUM_SQL on the device equal to the port's host
+    tier as PostgreSQL text, every F8_SUM_SQL query replayed (cold and 3
+    warm; at 2^log2n rows one host replay would take minutes)."""
+    import torch
+    from pg_strom_tpu_torch.exec.devcache import TCACHE, chunk_capacity
+    from pg_strom_tpu_torch.ops import preagg_fused as pf
+    t_phase = time.perf_counter()
+    n = 1 << log2n
+    db, c = _f8_db(seed + 7, n)
+    nchunks = -(-n // chunk_capacity(n))
+    _log(f"4h: f8 {n} rows generated in {time.perf_counter() - t_phase:.1f}"
+         f" s, {nchunks} chunk(s)")
+    TCACHE.clear()
+    out = {"queries": {}}
+    k2 = pf.fused_cuda.launches
+    for name, sql in F8_SQL.items():
+        want = _f8_expected(name, c)
+        runs = []
+        for i in range(4):
+            res, rows, counts, dt = _run_text(db, sql, F8_CFG)
+            if res[0] != "rows":
+                raise AssertionError(f"4h {name}: {res}")
+            if (counts.get("recheck_chunks", 0) or counts.get("cpu_fallback")
+                    or counts.get("unported_host_exact")
+                    or not _device_launched(counts)):
+                raise AssertionError(f"4h {name}: perfmon {counts}: "
+                                     "expected the device and no replay")
+            _f8_check(name, rows, want)
+            runs.append(dt)
+            if i == 0:
+                cold_counts = counts
+        ent = [r for r in TCACHE.info_rows() if r["table_name"] == "f8"
+               and r["kind"] == "chunks"]
+        out["queries"][name] = {"cold_ms": runs[0] * 1e3,
+                                "warm_ms": statistics.median(runs[1:]) * 1e3,
+                                "rows": len(rows)}
+        _log(f"4h {name} [{gpu}]: {len(rows)} rows exact vs numpy; "
+             f"recheck_chunks 0, replayed rows 0; cold {runs[0] * 1e3:.3f} "
+             f"ms, warm median {statistics.median(runs[1:]) * 1e3:.3f} ms "
+             f"of {[round(r * 1e3, 3) for r in runs[1:]]} (perfmon on; cold "
+             f"perfmon {cold_counts})")
+    out["k2_launches"] = pf.fused_cuda.launches - k2
+    out["plane_bytes"] = ent[0]["nbytes"] if ent else None
+    _log(f"4h: f8's planes {out['plane_bytes']} B resident "
+         f"({(out['plane_bytes'] or 0) / (nchunks * chunk_capacity(n)):.0f} "
+         f"B a row); K2 launches {out['k2_launches']}")
+    if out["k2_launches"] < 1:
+        raise AssertionError("4h: K2 never launched")
+    del db
+    TCACHE.clear()
+    torch.cuda.empty_cache()
+
+    m = 1 << host_log2n
+    db, c = _f8_db(seed + 8, m)
+    cap = chunk_capacity(m)
+    for name, sql in list(F8_SQL.items()) + list(F8_SUM_SQL.items()):
+        host, _, _, hdt = _run_text(db, sql, {"enabled": False})
+        replay = name in F8_SUM_SQL
+        runs = []
+        for _ in range(4 if replay else 1):
+            res, rows, counts, dt = _run_text(db, sql, F8_CFG)
+            if res != host:
+                raise AssertionError(f"4h {name} at {m} rows: device "
+                                     f"{str(res)[:300]} vs host tier "
+                                     f"{str(host)[:300]}")
+            runs.append(dt)
+        if replay:
+            want = _f8_sum_expected(name, c)
+            if want is None:
+                if res != ("error", "SqlError",
+                           "value out of range: overflow"):
+                    raise AssertionError(f"4h {name}: {res}")
+            else:
+                if len(rows) != len(want) or any(
+                        r[0] != e[0] or not _close(r[1], e[1])
+                        for r, e in zip(rows, want)):
+                    raise AssertionError(f"4h {name}: {rows} vs {want}")
+                if not counts.get("recheck_chunks"):
+                    raise AssertionError(f"4h {name}: not replayed: "
+                                         f"perfmon {counts}")
+        elif counts.get("recheck_chunks", 0) or counts.get("cpu_fallback"):
+            raise AssertionError(f"4h {name} at {m} rows: perfmon {counts}")
+        rc = counts.get("recheck_chunks", 0)
+        out["queries"].setdefault(name, {})["host_check"] = {
+            "recheck_chunks": rc, "replayed_rows": min(rc * cap, m),
+            "device_ms": [r * 1e3 for r in runs], "host_ms": hdt * 1e3}
+        how = (f"recheck_chunks {rc}, replayed rows {min(rc * cap, m)}"
+               if res[0] == "rows" else
+               f"{res[2]!r}, which only the host replay raises")
+        _log(f"4h {name} at {m} rows [{gpu}]: device == host tier; {how}; "
+             f"device {[round(r * 1e3, 3) for r in runs]} ms, host tier "
+             f"{hdt * 1e3:.3f} ms")
+    del db
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"phase 4h: {out['seconds']:.1f} s [{gpu}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: device path vs host-exact tier
 # ---------------------------------------------------------------------------
 
@@ -2894,6 +3323,8 @@ def main(argv=None) -> int:
     timing = phase_slice(args.seed, args.rows_log2, gpu)
     t0db = phase_testdb(args.seed, args.rows_log2, gpu, args.k4_parent,
                         min(args.window_rows_log2, args.rows_log2))
+    f8 = phase_float8(args.seed, args.rows_log2 - 1,
+                      min(F8_HOST_ROWS_LOG2, args.rows_log2 - 1), gpu)
     phase_small(args.seed)
     _log(f"total {time.perf_counter() - t_start:.1f} s [{gpu}]")
 
@@ -2915,7 +3346,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "pg_strom_tpu_torch/ops/cuda/preagg_fused.cu",
         "replaces": "pg_strom_tpu/ops/preagg_fused.py:284",
-        "launches": t0db["k2_launches"],
+        "launches": t0db["k2_launches"] + f8["k2_launches"],
         "max_abs_err": max([err] + [c["err"] for c in chunk.values()]),
         **{c: chunk[32][c] for c in cols},
     }, {

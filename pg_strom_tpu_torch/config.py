@@ -113,7 +113,9 @@ class _Config:
     #     columnar T-tree cache; here: HBM-resident chunk planes reused across
     #     queries with LRU eviction) ------------------------------------------
     enable_tcache: bool = True
-    tcache_size_mb: int = 8192            # device bytes budget for cached planes
+    # device bytes budget for cached planes, in MiB; 0 = from the device:
+    # 40% of a CUDA card's memory, 8192 on the CPU (exec/devcache.py)
+    tcache_size_mb: int = 0
 
     # --- cost model ---------------------------------------------------------
     cpu_tuple_cost: float = 0.01          # PostgreSQL defaults, for the cost model

@@ -482,13 +482,6 @@ class Chunk:
             valid[:n] = c.valid[start:stop]
             cc = Column(type=c.type, data=data, valid=valid,
                         dictionary=c.dictionary)
-            if c.type is T.FLOAT8:
-                # TPU f64 is software-emulated with a narrower exponent range
-                # than IEEE double; route out-of-window rows to the host-exact
-                # path (same CpuReCheck mechanism the reference uses for
-                # unrepresentable numerics, opencl_numeric.h)
-                a = np.abs(data[:n])
-                recheck[:n] |= valid[:n] & ((a > 1e37) | ((a != 0) & (a < 1e-37)))
             if c.type is T.NUMERIC:
                 cc.num_exp = np.zeros(cap, dtype=np.int32)
                 cc.num_dscale = np.zeros(cap, dtype=np.int32)

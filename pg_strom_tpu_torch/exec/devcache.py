@@ -9,8 +9,9 @@ same columns.
 
   - Keyed by the Column identities (Column.uid) and the device, not the
     Table: the planner re-wraps tables per query but shares Columns.
-  - LRU eviction bounded by `config.tcache_size_mb`; entries whose Columns
-    were garbage collected are swept on access.
+  - LRU eviction bounded by `config.tcache_size_mb`, whose default (0) is
+    sized from the device: 40% of a CUDA card's memory; entries whose
+    Columns were garbage collected are swept on access.
   - Chunks whose rows need host recheck (numeric outside the device
     window) carry planes=None — the executor replays them host-exactly.
   - Tables that would not fit in the budget stream: each chunk uploads,
@@ -35,6 +36,10 @@ import torch
 from ..config import config
 from ..datastore import Table, Chunk
 from ..expr.lower_torch import planes_of_column
+
+
+# the default budget when config.device is the CPU (tests, rehearsals)
+CPU_BUDGET_MB = 8192
 
 
 def device() -> torch.device:
@@ -136,7 +141,17 @@ class DeviceChunkCache:
         self.streamed = 0        # chunks served uncached (budget/disabled)
 
     def budget_bytes(self) -> int:
-        return int(config.tcache_size_mb) << 20
+        """The byte budget: `tcache_size_mb` when set, else 40% of the
+        configured CUDA device's memory (in whole MiB), or 8192 MiB on the
+        CPU."""
+        mb = int(config.tcache_size_mb)
+        if mb == 0:
+            dev = torch.device(config.device)
+            if dev.type != "cuda":
+                return CPU_BUDGET_MB << 20
+            total = torch.cuda.get_device_properties(dev).total_memory
+            return (total * 2 // 5) >> 20 << 20
+        return mb << 20
 
     def total_bytes(self) -> int:
         return sum(e.nbytes for e in self._lru.values())

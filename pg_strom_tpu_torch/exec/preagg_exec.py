@@ -99,9 +99,6 @@ def _key_value_from_planes(t: T, planes, g: int, meta: ColMeta | None):
                                   int(planes[3][g]))
     if t in (T.TEXT, T.BPCHAR):
         return meta.dictionary[int(data[g])] if meta and meta.dictionary else None
-    if t is T.FLOAT8 and len(planes) >= 3:
-        # exact value from the IEEE-bits plane
-        return float(np.int64(planes[2][g]).view(np.float64))
     if t in (T.FLOAT4, T.FLOAT8):
         return float(data[g])
     if t is T.BOOL:

@@ -17,10 +17,13 @@ Device numeric is (mant int64, exp int32) with the reference's
 representable window (|mant| < 2^57, exp in [-32,31], opencl_numeric.h);
 any op leaving the window writes ERR_CPU_RECHECK instead of a wrong answer.
 
-The float8 range rechecks and the float8 raw-bits plane are the
-reference's, kept unchanged so that both packages take the same decisions
-(they exist for the TPU's emulated f64; removing them is ROADMAP queue 1,
-"Removals in the port", with a test).
+Float8 is IEEE double on the device: a FLOAT8 column ships (data, valid)
+and a reader that needs its bits takes `data.view(torch.int64)`.  The
+float8 sites that still defer to the host (arithmetic that overflows or
+underflows, a numeric cast out of float8's range, math functions outside
+their domain) carry PostgreSQL's own errors: the host replay raises
+PostgreSQL's "value out of range" / domain error text for the first
+offending row.
 """
 
 from __future__ import annotations
@@ -79,7 +82,6 @@ class DVal:
     data: torch.Tensor
     valid: torch.Tensor
     exp: Optional[torch.Tensor] = None          # NUMERIC only
-    bits: Optional[torch.Tensor] = None         # FLOAT8 columns: IEEE bits
     dscale_lane: Optional[torch.Tensor] = None  # NUMERIC columns: dscale
 
 
@@ -158,7 +160,7 @@ class Lowerer:
     """One lowering session over a fixed input schema.
 
     cols[i] is the runtime plane tuple for slot i:
-      non-numeric: (data, valid[, bits]) ; numeric: (data, valid, exp, dscale)
+      non-numeric: (data, valid) ; numeric: (data, valid, exp, dscale)
     """
 
     def __init__(self, schema: Sequence[ColMeta], cols: Sequence[tuple],
@@ -204,10 +206,7 @@ class Lowerer:
                 if len(planes) >= 4:  # display-scale plane (aggregation)
                     v.dscale_lane = planes[3]
                 return v
-            v = DVal(meta.type, planes[0], planes[1])
-            if meta.type is T.FLOAT8 and len(planes) >= 3:
-                v.bits = planes[2]  # exact IEEE bits (see planes_of_column)
-            return v
+            return DVal(meta.type, planes[0], planes[1])
         if isinstance(e, FuncExpr):
             return self._lower_func(e, live)
         if isinstance(e, BoolExpr):
@@ -437,9 +436,9 @@ class Lowerer:
 
     def _float_arith(self, op: str, t: T, a: DVal, b: DVal,
                      valid: torch.Tensor, alive: torch.Tensor) -> DVal:
-        # float4 anomalies are hard SQL errors; float8 anomalies defer to the
-        # host-exact replay (the reference's emulated-f64 rule, kept so that
-        # both packages take the same path)
+        # float4 anomalies are hard SQL errors; a float8 overflow or
+        # underflow defers to the host replay, which raises PostgreSQL's
+        # "value out of range" text for the first offending row
         dt = torch.float32 if t is T.FLOAT4 else torch.float64
         ovf_err = ERR_FLOAT_OVERFLOW if t is T.FLOAT4 else ERR_CPU_RECHECK
         und_err = ERR_FLOAT_UNDERFLOW if t is T.FLOAT4 else ERR_CPU_RECHECK
@@ -533,22 +532,18 @@ class Lowerer:
             mb = b.data * torch.where(exact, pb, torch.ones_like(pb))
             d = _cmp_from_lt_eq(tag, ma < mb, ma == mb)
             return DVal(T.BOOL, d, valid)
-        # float8: when both sides carry exact IEEE bits, compare through the
-        # integer total-order map
-        if a.t is T.FLOAT8 and a.bits is not None and b.bits is not None:
-            x, y = _f64_orderkey(a.bits), _f64_orderkey(b.bits)
-        else:
-            x, y = a.data, b.data
-            if x.dtype != y.dtype:
-                ct = torch.promote_types(x.dtype, y.dtype)
-                x = x.to(ct)
-                y = y.to(ct)
-            if a.t in (T.FLOAT4, T.FLOAT8):
-                # PG float comparison: NaN == NaN and NaN > everything
-                xn, yn = torch.isnan(x), torch.isnan(y)
-                lt = torch.where(xn | yn, (~xn) & yn, x < y)
-                eq = torch.where(xn | yn, xn & yn, x == y)
-                return DVal(T.BOOL, _cmp_from_lt_eq(tag, lt, eq), valid)
+        x, y = a.data, b.data
+        if x.dtype != y.dtype:
+            ct = torch.promote_types(x.dtype, y.dtype)
+            x = x.to(ct)
+            y = y.to(ct)
+        if a.t in (T.FLOAT4, T.FLOAT8):
+            # PG float comparison: NaN == NaN and NaN > everything; IEEE
+            # compares are exact over the whole double range
+            xn, yn = torch.isnan(x), torch.isnan(y)
+            lt = torch.where(xn | yn, (~xn) & yn, x < y)
+            eq = torch.where(xn | yn, xn & yn, x == y)
+            return DVal(T.BOOL, _cmp_from_lt_eq(tag, lt, eq), valid)
         d = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
              "gt": torch.gt, "ge": torch.ge}[tag](x, y)
         return DVal(T.BOOL, d, valid)
@@ -635,7 +630,8 @@ class Lowerer:
             if src is T.NUMERIC:
                 f = a.data.to(torch.float64) * self._tab(_POW10_F64)[
                     (a.exp + 40).clamp(0, 80).to(torch.int64)]
-                # the reference's emulated-f64 range rule: defer to the host
+                # beyond float8's range PostgreSQL raises "value out of
+                # range" (over- or underflow): the host replay raises it
                 self._raise(torch.isinf(f) | ((f == 0) & (a.data != 0)),
                             ERR_CPU_RECHECK, alive)
                 r = f.to(dt)
@@ -709,7 +705,8 @@ class Lowerer:
         if name in ("sqrt", "ln", "log", "asin", "acos"):
             self._raise(torch.isnan(r) & ~torch.isnan(x), ERR_CPU_RECHECK,
                         alive)
-        # float8 anomalies defer to host (the reference's f64 range rule)
+        # a result leaving float8's range (exp(1000)) is PostgreSQL's
+        # "value out of range" error: the host replay raises it
         self._raise(torch.isinf(r) & ~torch.isinf(x), ERR_CPU_RECHECK, alive)
         return DVal(T.FLOAT8, r, valid)
 
@@ -747,6 +744,12 @@ class Lowerer:
         if op == "shl":
             return DVal(t, x << sh, valid)
         return DVal(t, x >> sh, valid)
+
+
+def f64_bits(data: torch.Tensor) -> torch.Tensor:
+    """The IEEE-754 bits of a float8 lane as int64: a view of the float64
+    data plane, so a FLOAT8 column needs no bits plane of its own."""
+    return data.to(torch.float64).view(torch.int64)
 
 
 def _f64_orderkey(bits: torch.Tensor) -> torch.Tensor:
@@ -791,15 +794,12 @@ def schema_from_chunk_columns(names: Sequence[str], cols) -> list[ColMeta]:
 
 
 def planes_of_column(c) -> tuple:
-    """Runtime plane tuple for one datastore Column (host ndarrays).
-
-    FLOAT8 carries a third plane, the raw IEEE-754 bits as int64, so that
-    comparisons, grouping and min/max can run bit-exactly through integer
-    ordering (the reference's layout, kept so the two packages agree)."""
+    """Runtime plane tuple for one datastore Column (host ndarrays):
+    (data, valid), and for NUMERIC also (exp, dscale).  A FLOAT8 column's
+    IEEE bits are `data.view(torch.int64)` on the device, so they ship no
+    plane of their own."""
     if c.type is T.NUMERIC:
         return (c.data, c.valid, c.num_exp, c.num_dscale)
-    if c.type is T.FLOAT8:
-        return (c.data, c.valid, c.data.view(np.int64))
     return (c.data, c.valid)
 
 

@@ -79,15 +79,11 @@ def canonical_f64_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def hash_column(t: T, data: torch.Tensor, valid: torch.Tensor,
-                exp: torch.Tensor | None = None,
-                bits: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-row u64 hash (int64 bits) of one key column (NULL-aware).
-
-    For float8, pass the exact IEEE bits plane when available."""
-    if t is T.FLOAT8 and bits is not None:
-        h = _mix64(canonical_f64_bits(bits))
-    else:
-        h = _mix64(_canonical_bits(t, data))
+                exp: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-row u64 hash (int64 bits) of one key column (NULL-aware).  A
+    float8 lane hashes its canonical IEEE bits, as the reference does from
+    its bits plane."""
+    h = _mix64(_canonical_bits(t, data))
     if t is T.NUMERIC and exp is not None:
         h = _mix64(h ^ _mix64(exp.to(torch.int64)))
     return torch.where(valid, h, torch.full_like(h, _NULL_TAG))
@@ -129,13 +125,9 @@ def _fold32(t: T, data: torch.Tensor) -> torch.Tensor:
 
 
 def hash_column32(t: T, data: torch.Tensor, valid: torch.Tensor,
-                  exp: torch.Tensor | None = None,
-                  bits: torch.Tensor | None = None) -> torch.Tensor:
+                  exp: torch.Tensor | None = None) -> torch.Tensor:
     """Per-row u32 hash of one key column (NULL-aware, SQL equality)."""
-    if t is T.FLOAT8 and bits is not None:
-        cb = canonical_f64_bits(bits)
-        h = _mix32((cb ^ (cb >> 32)) & M32)
-    elif t is T.FLOAT8:
+    if t is T.FLOAT8:
         b = _canonical_f64(data).view(torch.int64)
         h = _mix32((b ^ (b >> 32)) & M32)
     else:

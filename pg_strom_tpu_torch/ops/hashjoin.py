@@ -81,7 +81,7 @@ def mxu_dense_window(build_cap: int) -> int:
 def _buckets(keys: list[DVal], allvalid: torch.Tensor, nbuckets: int,
              null_bucket: int) -> torch.Tensor:
     hs = [hash_column32(k.t, k.data, k.valid,
-                        k.exp if k.t is T.NUMERIC else None, k.bits)
+                        k.exp if k.t is T.NUMERIC else None)
           for k in keys]
     bucket = (combine_hashes32(hs) & (nbuckets - 1)).to(torch.int32)
     return torch.where(allvalid, bucket, torch.full_like(bucket, null_bucket))

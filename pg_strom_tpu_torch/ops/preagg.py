@@ -34,9 +34,10 @@ from ..errors import ERR_CPU_RECHECK
 from .. import pgnumeric as pgn
 from ..expr.ir import Expr
 from ..expr.lower_torch import (ColMeta, DVal, Lowerer, INT64_MIN,
-                                INT64_MAX)
+                                INT64_MAX, _f64_orderkey, f64_bits)
 from .hashing import (hash_column32, combine_hashes32, canonical_f64_bits,
                       _mix32, M32)
+from .preagg_mxu import f64_out_of_domain
 
 # ---------------------------------------------------------------------------
 # aggregate definitions: (aggname, family) -> slots + finalizer + rettype
@@ -328,7 +329,7 @@ def _bucket_ids(keys, mask: torch.Tensor, salt: int, G: int) -> torch.Tensor:
     range+1) — collision-free by construction.  Everything else uses
     salted-hash buckets with host-verified key constancy."""
     hs = [hash_column32(k.t, k.data, k.valid,
-                        k.exp if k.t is T.NUMERIC else None, k.bits)
+                        k.exp if k.t is T.NUMERIC else None)
           for k in keys]
     h = _mix32(combine_hashes32(hs) ^ (int(salt) & M32))
     bucket = (h & (G - 1)).to(torch.int32)
@@ -435,13 +436,18 @@ def _slot_compute(kind: str, inst_args: list[DVal], mask: torch.Tensor,
         out = _seg(v, seg_id, G, "sum")
         # any inf in the partial (or per-row square): the host replay
         # decides whether PostgreSQL raises or the value is representable
-        bad = torch.isinf(out).any() | torch.isinf(v).any()
+        bad = torch.isinf(out).any()
         if kind == "sum_f" and a.t is T.FLOAT4:
             # PG sums float4 stepwise in f32: a sequential prefix can
             # overflow even when the total is finite; if the absolute mass
             # could reach f32-inf territory, replay sequentially on host
             absmass = _seg(x.abs(), seg_id, G, "sum")
-            bad = bad | (absmass > 3.0e38).any() | torch.isinf(absmass).any()
+            bad = (bad | torch.isinf(v).any() | (absmass > 3.0e38).any()
+                   | torch.isinf(absmass).any())
+        else:
+            # the double-float lanes' domain (inf included): the chunk
+            # replays whichever strategy runs it
+            bad = bad | f64_out_of_domain(v).any()
         _recheck_if(lw, bad)
         return {kind: out}
 
@@ -451,7 +457,7 @@ def _slot_compute(kind: str, inst_args: list[DVal], mask: torch.Tensor,
         v = {"sum_x": x, "sum_y": y, "sum_xy": x * y,
              "sumsq_x": x * x, "sumsq_y": y * y}[kind]
         out = _seg(v, seg_id, G, "sum")
-        _recheck_if(lw, torch.isinf(out).any() | torch.isinf(v).any())
+        _recheck_if(lw, torch.isinf(out).any() | f64_out_of_domain(v).any())
         return {kind: out}
 
     if kind in ("sum_num", "maxdscale", "sumsq_num"):
@@ -532,15 +538,14 @@ def _slot_minmax(kind: str, a: DVal, ok: torch.Tensor, seg_id,
                     hv, a.dscale_lane[gi_c],
                     torch.zeros_like(a.dscale_lane[gi_c])),
                 f"{kind}_has": hv}
-    if a.t is T.FLOAT8 and a.bits is not None:
-        from ..expr.lower_torch import _f64_orderkey
-        key = _f64_orderkey(a.bits)
+    if a.t is T.FLOAT8:
+        key = _f64_orderkey(f64_bits(a.data))
         # the sentinel must beat EVERY real order key (int64 extremes are
         # unreachable; the has-lane guards empty groups)
         sent = torch.full_like(key, INT64_MAX if kind == "min" else INT64_MIN)
         g = _seg(torch.where(ok, key, sent), seg_id, G, how)
         return {f"{kind}_okey": g, f"{kind}_has": has()}
-    if a.t in (T.FLOAT4, T.FLOAT8):
+    if a.t is T.FLOAT4:
         sent = torch.full_like(a.data, float("inf") if kind == "min"
                                else float("-inf"))
         g = _seg(torch.where(ok, a.data, sent), seg_id, G, how)
@@ -586,8 +591,7 @@ def build_preagg_fn(schema: Sequence[ColMeta], group_exprs: Sequence[Expr],
       ngroups  : int32
       gmask    : bool[G] — which group slots are populated
       keys     : tuple per group expr of plane tuple
-                 (data, valid) or (mant, valid, exp, dscale) for numeric,
-                 (data, valid, bits) for float8
+                 (data, valid) or (mant, valid, exp, dscale) for numeric
       slots    : tuple per agg of dict name->array[G]
     """
     group_exprs = list(group_exprs)
@@ -712,13 +716,11 @@ def build_preagg_fn(schema: Sequence[ColMeta], group_exprs: Sequence[Expr],
                 if k.t is T.NUMERIC:
                     planes.append(k.exp[frow])
                     planes.append(k.dscale_lane[frow])
-                elif k.t is T.FLOAT8 and k.bits is not None:
-                    planes.append(k.bits[frow])
                 key_out.append(tuple(planes))
             gmask = nonempty
         elif group_exprs:
             hs = [hash_column32(k.t, k.data, k.valid,
-                                k.exp if k.t is T.NUMERIC else None, k.bits)
+                                k.exp if k.t is T.NUMERIC else None)
                   for k in keys]
             h = (combine_hashes32(hs) >> 2).to(torch.int32)
             hkey = torch.where(mask, h, torch.full_like(h, 1 << 30))
@@ -749,8 +751,6 @@ def build_preagg_fn(schema: Sequence[ColMeta], group_exprs: Sequence[Expr],
                 if k.t is T.NUMERIC:
                     planes.append(k.exp[first_pos])
                     planes.append(k.dscale_lane[first_pos])
-                elif k.t is T.FLOAT8 and k.bits is not None:
-                    planes.append(k.bits[first_pos])
                 key_out.append(tuple(planes))
             gmask = gvalid
         else:
@@ -787,15 +787,13 @@ def _bucket_mixed(k: DVal, mask: torch.Tensor, seg_id: torch.Tensor,
     (Rows with NULL keys group together; a NULL/value mix in one bucket
     shows up via the validity lane.)"""
     lanes = []
-    if k.t is T.FLOAT8 and k.bits is not None:
-        lanes.append(canonical_f64_bits(k.bits))
-    elif k.t in (T.FLOAT4, T.FLOAT8):
-        dt = torch.float32 if k.t is T.FLOAT4 else torch.float64
-        d = k.data.to(dt)
+    if k.t is T.FLOAT8:
+        lanes.append(canonical_f64_bits(f64_bits(k.data)))
+    elif k.t is T.FLOAT4:
+        d = k.data.to(torch.float32)
         d = torch.where(d == 0, torch.zeros_like(d), d)          # -0 == +0
         d = torch.where(torch.isnan(d), torch.full_like(d, float("nan")), d)
-        lanes.append(d.view(torch.int32 if k.t is T.FLOAT4 else torch.int64)
-                     .to(torch.int64))
+        lanes.append(d.view(torch.int32).to(torch.int64))
     else:
         lanes.append(k.data.to(torch.int64))
         if k.t is T.NUMERIC:
@@ -814,7 +812,6 @@ def _bucket_mixed(k: DVal, mask: torch.Tensor, seg_id: torch.Tensor,
 def _gather_dval(v: DVal, order: torch.Tensor) -> DVal:
     return DVal(v.t, v.data[order], v.valid[order],
                 v.exp[order] if v.exp is not None else None,
-                bits=v.bits[order] if v.bits is not None else None,
                 dscale_lane=(v.dscale_lane[order]
                              if v.dscale_lane is not None else None))
 
@@ -825,10 +822,10 @@ def _rows_equal(keys_s: list[DVal], i, j) -> torch.Tensor:
     for k in keys_s:
         va, vb = k.valid[i], k.valid[j]
         da, db = k.data[i], k.data[j]
-        if k.t is T.FLOAT8 and k.bits is not None:
-            same_val = (canonical_f64_bits(k.bits[i])
-                        == canonical_f64_bits(k.bits[j]))
-        elif k.t in (T.FLOAT4, T.FLOAT8):
+        if k.t is T.FLOAT8:
+            bits = canonical_f64_bits(f64_bits(k.data))
+            same_val = bits[i] == bits[j]
+        elif k.t is T.FLOAT4:
             da = torch.where(da == 0, torch.zeros_like(da), da)
             db = torch.where(db == 0, torch.zeros_like(db), db)
             same_val = (da == db) | (torch.isnan(da) & torch.isnan(db))

@@ -39,7 +39,8 @@ import torch
 
 from ..sqltypes import T
 from .preagg_mxu import (F4_LIMBS, _kind_mxu_ok, _f4_scale_exp,
-                         _f64_quantity, _f64_blocks_enabled, mxu_recipes,
+                         _f64_quantity, _f64_blocks_enabled, f64_head_tail,
+                         mxu_recipes,
                          mxu_shadow_cols, _KEY_WIDE_TYPES, _F64_KINDS)
 
 MAX_G = 1 << 11
@@ -476,10 +477,7 @@ def encode_lanes(key_vals, aggs, arg_vals, mask: torch.Tensor, plan: _Plan,
             else:
                 # f64 double-float: encode head/tail f32 lanes in torch (the
                 # only f64 math), digits in the kernel
-                q = _f64_quantity(kind, vals, ok)
-                hi64 = q.to(torch.float32)
-                lo64 = (q - hi64.to(torch.float64)).to(torch.float32)
-                for lane in (hi64, lo64):
+                for lane in f64_head_tail(_f64_quantity(kind, vals, ok)):
                     absx = torch.where(torch.isnan(lane), zero32, lane.abs())
                     sc, e = _f4_scale_exp(absx)
                     f4_exps.append(e)

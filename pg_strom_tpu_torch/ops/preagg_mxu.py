@@ -67,6 +67,37 @@ def mxu_dense_supported(key_types: Sequence[T]) -> bool:
     return (len(key_types) == 1 and key_types[0] in _KEY_OK_TYPES)
 
 
+# A slot whose quantity q rides the double-float lanes (head f32(q) + tail
+# f32(q - head): sum of a float8, and the squares and products of stddev,
+# variance and covariance) runs on the device only over rows where q is 0
+# or 2^-102 <= |q| <= 1e37.  Below, the f32 tail is subnormal and the pair
+# holds fewer than 48 bits, down to both halves flushing to zero (the sum
+# would silently lose the row); above, q nears the head's f32 range.  The
+# lane encoders give such a row an inf head, so the shadow reads inf and
+# the chunk replays on the host (mxu_overflow); the IEEE segment sums of
+# the other strategies raise ERR_CPU_RECHECK on the same rows, so where a
+# chunk runs does not change its answer.  The domain holds the
+# [1e-37, 1e37] of every argument that the datastore's float8 range rule
+# used to guard; compares, sorts, keys and joins need no rule on IEEE
+# hardware.
+F64_SUM_MIN = 2.0 ** -102
+F64_SUM_MAX = 1e37
+
+
+def f64_out_of_domain(q: torch.Tensor) -> torch.Tensor:
+    """Rows whose double-float quantity q leaves the lanes' domain."""
+    a = q.abs()
+    return (a > F64_SUM_MAX) | ((a < F64_SUM_MIN) & (a != 0))
+
+
+def f64_head_tail(q: torch.Tensor):
+    """(head, tail) f32 lanes of quantity q; a row outside the domain gets
+    an inf head, which the inf/nan shadow guard turns into a replay."""
+    hi = q.to(torch.float32)
+    lo = (q - hi.to(torch.float64)).to(torch.float32)
+    return hi.masked_fill(f64_out_of_domain(q), float("inf")), lo
+
+
 # float8 double-float blocks widen a plan by ~19 columns per slot.  On the
 # card f64 kinds ride the column sums (K2), as on the TPU; on the CPU (the
 # tests) they take the scatter side path, as the reference does on its CPU
@@ -324,9 +355,7 @@ def build_mxu_columns(key_vals, aggs, arg_vals, mask: torch.Tensor, n: int,
                 cols.append(_mask0(a.data.to(torch.float32).abs(), ok))
             else:
                 # f64 additive quantity q -> head f32(q) + tail f32(q - head)
-                q = _f64_quantity(kind, vals, ok)
-                hi = q.to(torch.float32)
-                lo = (q - hi.to(torch.float64)).to(torch.float32)
+                hi, lo = f64_head_tail(_f64_quantity(kind, vals, ok))
                 hp, he = _f32_signed_block(hi)
                 lp, le = _f32_signed_block(lo)
                 f4_exps.append(he)
@@ -498,9 +527,9 @@ def mxu_overflow(out, slot_recipes) -> bool:
                         or np.any(sh > 3.0e38)):
                     return True
             elif r.lo_limbs:
-                # f64 double-float block: inf/nan head (value beyond the f32
-                # head range, or inf/nan input/square) => host replay — the
-                # same domain as the TPU-emulated-f64 recheck
+                # f64 double-float block: inf/nan head (a quantity outside
+                # the lanes' domain, which f64_head_tail marks inf, or a
+                # nan input) => host replay
                 sh = fsums[:, spos[r.shadow]]
                 if np.any(np.isinf(sh)) or np.any(np.isnan(sh)):
                     return True

@@ -43,7 +43,7 @@ import torch
 from ..sqltypes import T
 from ..expr.ir import Expr
 from ..expr.lower_torch import (Lowerer, DVal, ColMeta, _f64_orderkey,
-                                _live, pred_mask, err_max)
+                                f64_bits, _live, pred_mask, err_max)
 from ..utils.perfmon import bump_active
 
 _SIGN = -(1 << 63)              # the uint64 top bit as an int64 pattern
@@ -107,12 +107,6 @@ def _f32_orderkey(data: torch.Tensor) -> torch.Tensor:
     return key.to(torch.int64)
 
 
-def _f64_bits(v: DVal) -> torch.Tensor:
-    if v.bits is not None:
-        return v.bits
-    return v.data.to(torch.float64).contiguous().view(torch.int64)
-
-
 _INT_WIDTH = {T.BOOL: 1, T.INT2: 16, T.INT4: 32, T.DATE: 32, T.TIME: 64,
               T.TIMESTAMP: 64, T.INT8: 64}
 
@@ -125,7 +119,7 @@ def _order_lanes(v: DVal) -> list[tuple[torch.Tensor, int]]:
         p, s = _num_sort_keys(v.data, v.exp)
         return _bias_chunks(p, 10) + _bias_chunks(s, 62)
     if v.t is T.FLOAT8:
-        return _bias_chunks(_f64_orderkey(_f64_bits(v)), 64)
+        return _bias_chunks(_f64_orderkey(f64_bits(v.data)), 64)
     if v.t is T.FLOAT4:
         return _bias_chunks(_f32_orderkey(v.data), 32)
     return _bias_chunks(v.data.to(torch.int64), _INT_WIDTH.get(v.t, 64))
@@ -195,7 +189,7 @@ def _full_specs(v: DVal, sp: SortSpec) -> tuple:
         p, s = _num_sort_keys(v.data, v.exp)
         fulls = [_bias_unsigned(p, 10), _bias_unsigned(s, 62)]
     elif v.t is T.FLOAT8:
-        fulls = [_bias_unsigned(_f64_orderkey(_f64_bits(v)), 64)]
+        fulls = [_bias_unsigned(_f64_orderkey(f64_bits(v.data)), 64)]
     elif v.t is T.FLOAT4:
         fulls = [_bias_unsigned(_f32_orderkey(v.data), 32)]
     else:

@@ -164,10 +164,9 @@ def _arg_dval(sp: LaneSpec, data_lane, valid_lane):
     """DVal for an agg-arg lane (ops/preagg._slot_compute input)."""
     from ..expr.lower_torch import DVal, storage_dtype
     t = sp.t
-    if t is T.FLOAT8:
-        bits = data_lane.contiguous()
-        return DVal(t=t, data=bits.view(torch.float64), valid=valid_lane,
-                    bits=bits)
+    if t is T.FLOAT8:     # rides the exchange as its IEEE bits (int64)
+        return DVal(t=t, data=data_lane.contiguous().view(torch.float64),
+                    valid=valid_lane)
     if t is T.FLOAT4:
         return DVal(t=t, data=data_lane, valid=valid_lane)
     return DVal(t=t, data=data_lane.to(storage_dtype(t)), valid=valid_lane)

@@ -417,15 +417,15 @@ def test_hash_column_bit_identical(tname):
 
     def tarr(a):
         return None if a is None else torch.from_numpy(a)
+    # FLOAT8_bits: the reference hashes its bits plane; the port has none
+    # and hashes the data lane's bits, which must give the same hashes
     r32 = np.asarray(r_hash.hash_column32(rt, jarr(d), jarr(valid),
                                           jarr(exp), jarr(bits)))
-    p32 = p_hash.hash_column32(pt, tarr(d), tarr(valid), tarr(exp),
-                               tarr(bits)).numpy()
+    p32 = p_hash.hash_column32(pt, tarr(d), tarr(valid), tarr(exp)).numpy()
     assert np.array_equal(r32.astype(np.int64), p32)
     r64 = np.asarray(r_hash.hash_column(rt, jarr(d), jarr(valid), jarr(exp),
                                         jarr(bits)))
-    p64 = p_hash.hash_column(pt, tarr(d), tarr(valid), tarr(exp),
-                             tarr(bits)).numpy()
+    p64 = p_hash.hash_column(pt, tarr(d), tarr(valid), tarr(exp)).numpy()
     assert np.array_equal(r64.view(np.int64), p64)
 
 

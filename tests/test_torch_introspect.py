@@ -107,8 +107,8 @@ def test_tcache_info_shows_resident_table(dbs):
                  "from pgstrom_tcache_info", pdb).rows
     t_rows = [r for r in rows if r[0] == "t"]
     assert t_rows and t_rows[0][1] == "chunks" and t_rows[0][2] == 1
-    # k int4 + valid, x float8 + valid + its int64 bits, padded to 8192 rows
-    assert t_rows[0][3] == 8192 * (4 + 1 + 8 + 1 + 8)
+    # k int4 + valid, x float8 + valid (no bits plane), padded to 8192 rows
+    assert t_rows[0][3] == 8192 * (4 + 1 + 8 + 1)
 
 
 @pytest.mark.parametrize("name", ("pgstrom_arena_info", "pgstrom_slab_info",

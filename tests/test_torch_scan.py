@@ -234,10 +234,14 @@ def test_join_hash_table_cached_in_aux_space(pdb):
     assert TCACHE.hits > h0
 
 
-def test_zero_budget_streams_scan(pdb):
+def test_zero_budget_streams_scan(pdb, monkeypatch):
+    # tcache_size_mb=0 now means "sized from the device", so the zero
+    # budget is set on the cache itself
     TCACHE.clear()
     s0 = TCACHE.streamed
-    out = _run(pdb, SCAN_SQL, chunk_rows=1024, tcache_size_mb=0)
+    monkeypatch.setattr(TCACHE, "budget_bytes", lambda: 0)
+    out = _run(pdb, SCAN_SQL, chunk_rows=1024)
+    monkeypatch.undo()
     assert TCACHE.streamed > s0
     assert TCACHE.total_bytes() == 0
     assert out == _run(pdb, SCAN_SQL, enabled=False)
