@@ -109,6 +109,17 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    queries and sum / avg / stddev over only-tiny and only-huge groups
    (cold and 3 warm: each replays) equal to the port's host tier as
    PostgreSQL text, recheck_chunks and replayed rows logged;
+4i. float sums whose groups sit far apart in scale (after 4h, a new
+   database): sw(k int4, a float4, b float8) of 64 groups, 62 at their
+   own scale over 2^-60 ... 2^60, one of zeros, one of float4
+   subnormals; 2^(N-1) bulk rows of the five top groups (about 1.1 GB of
+   planes) in 2^(N-5)-row chunks, then a 2^16-row tail chunk of the other
+   59: sum and avg of a on K1, K2 and K4 and of b on K2 and K4, each cold
+   and 3 warm, every group against numpy (the device's exact sums, the
+   tail's stepwise host sums), recheck_chunks 1 (the tail: its window
+   check trips) and the kernel launched on every chunk; warm times and
+   the replay's host time logged; then at 2^16 + 2^12 rows each route
+   equal to the port's host tier as PostgreSQL text;
 4c. the K4 path in 4b's database: agg_group with the fused kernel off
    and use_pallas_reduce on, cold and 5 warm runs: K4 launched on every
    chunk of each run, rows equal to the K2 path's as PostgreSQL text;
@@ -148,7 +159,8 @@ def _log_sass_atomics(so: str) -> dict:
     """The atomic instructions each kernel of the library compiled to
     (cuobjdump -sass), by kernel: a 64-bit or float shared-memory add that
     is a compare-and-swap loop shows as ATOMS.CAS / ATOMS.CAST.SPIN, a
-    native one as ATOMS.ADD."""
+    native one as ATOMS.ADD; the global flushes as REDG (a float one
+    with .FTZ flushes subnormals: onehot_accum.cuh's shadow adds)."""
     import collections
     import re
     import shutil
@@ -164,7 +176,8 @@ def _log_sass_atomics(so: str) -> dict:
             fn = m.group(1)
             found.setdefault(fn, collections.Counter())
             continue
-        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9_.]+)", line)
+        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)",
+                      line)
         if m and fn is not None:
             found[fn][m.group(1)] += 1
     out = {}
@@ -333,16 +346,29 @@ def _run_both(plan, kpred, cols, nrows, grid=None):
     return k, p, planes, scal
 
 
-def _overflow(plan, shadow) -> bool:
+def _replay(aggs, slotr, exps, shadow_cols, int_map=None, S=0):
+    """f(ints, shadow) -> the host's replay decision (mxu_overflow) on one
+    kernel output: ints in recipe order, or physical columns that int_map
+    ((recipe col, physical col, multiplier)) maps into S recipe columns;
+    shadow_cols picks the shadow columns in recipe order."""
     import numpy as np
     from pg_strom_tpu_torch.ops.preagg_mxu import mxu_overflow
-    pcs = [pc for _, pc in plan.sig.shadow_map]
-    fs = (shadow[:, pcs].double().cpu().numpy() if pcs
-          else np.zeros((plan.G, 0)))
-    return mxu_overflow({"mxu_fsums": fs}, plan.recipes)
+    exps = np.asarray(exps.cpu() if hasattr(exps, "cpu") else exps)
+
+    def decide(ints, shadow) -> bool:
+        iv = ints.cpu().numpy()
+        if int_map is not None:
+            sums = np.zeros((iv.shape[0], S), np.int64)
+            for rc, pc, m in int_map:
+                sums[:, rc] += iv[:, pc] * m
+            iv = sums
+        fs = shadow[:, list(shadow_cols)].double().cpu().numpy()
+        return mxu_overflow({"mxu_sums": iv, "mxu_fsums": fs,
+                             "mxu_f4exps": exps}, slotr, aggs)
+    return decide
 
 
-def _compare(plan, kpred, cols, nrows, grid=None) -> int:
+def _compare(plan, aggs, kpred, cols, nrows, grid=None) -> int:
     """max |kernel - plain| over ints (0 required) after checking the
     host-replay decision; raises on disagreement."""
     import torch
@@ -352,7 +378,10 @@ def _compare(plan, kpred, cols, nrows, grid=None) -> int:
     if not torch.equal(ki, pi):
         raise AssertionError(f"K1 ints differ from the plain version (max "
                              f"abs diff {err})")
-    if _overflow(plan, ks) != _overflow(plan, ps):
+    decide = _replay(aggs, plan.recipes, plan.f4e,
+                     [pc for _, pc in plan.sig.shadow_map], plan.sig.int_map,
+                     plan.sig.S)
+    if decide(ki, ks) != decide(pi, ps):
         raise AssertionError("K1 and the plain version disagree on host "
                              "replay")
     return err
@@ -392,7 +421,7 @@ def phase_kernels(seed: int, log2n: int) -> int:
         prog = lower_program(plan.sig, pred)
         n_sh = len(plan.sig.shadow_map)
         cols = _device_cols(t, dev)
-        worst = max(worst, _compare(plan, pred, cols, nrows))
+        worst = max(worst, _compare(plan, aggs, pred, cols, nrows))
         lp = plan_launch(plan.G, plan.sig.ncols, n_sh, 0)
         _log(f"kernel case {name}: G={plan.G} K={plan.sig.ncols} "
              f"ops={len(prog.ops)} pred_ops={len(prog.pred)} "
@@ -429,7 +458,7 @@ def k1_exact_window(dev, log2n: int) -> int:
     cols = _device_cols(t, dev)
     worst = 0
     for grid in (1, 2):
-        worst = max(worst, _compare(plan, None, cols, n, grid))
+        worst = max(worst, _compare(plan, aggs, None, cols, n, grid))
     _log(f"kernel case exact_window: {n} rows in one bucket, digits 255, "
          f"G={plan.G} K={plan.sig.ncols}, grids 1 and 2: ints bit-equal to "
          "the plain version")
@@ -576,14 +605,15 @@ def _k2_compare(name, keys, aggs, vals, mask, seg, G, n, dense,
     bit-equal ints and the same replay decision."""
     import torch
     from pg_strom_tpu_torch.ops import preagg_fused as pf
-    from pg_strom_tpu_torch.ops.preagg_mxu import mxu_overflow, mxu_recipes
+    from pg_strom_tpu_torch.ops.preagg_mxu import mxu_recipes
     kts = [k.t for k in keys]
     ats = [tuple(v.t for v in vs) for vs in vals]
-    plan, _ = pf._plan_cached(tuple(kts), tuple(tuple(a.slots) for a in aggs),
+    plan, S = pf._plan_cached(tuple(kts), tuple(tuple(a.slots) for a in aggs),
                               tuple(ats), True, dense)
     if plan is None:
         raise AssertionError(f"K2 case {name}: no fused plan")
-    inputs, scales, _ = pf.encode_lanes(keys, aggs, vals, mask, plan, dense)
+    inputs, scales, exps = pf.encode_lanes(keys, aggs, vals, mask, plan,
+                                           dense)
     sc = torch.stack(scales).float() if scales else torch.zeros(
         1, device=mask.device)
     seg = seg.to(torch.int32).contiguous()
@@ -595,34 +625,35 @@ def _k2_compare(name, keys, aggs, vals, mask, seg, G, n, dense,
         raise AssertionError(f"K2 case {name}: ints differ from the plain "
                              f"version (max abs diff {err})")
     _, slotr, _ = mxu_recipes(kts, aggs, ats, dense_key=dense)
-    pcs = [pc for _, pc in plan.shadow_map]
-    dec = [mxu_overflow({"mxu_fsums": s[:, pcs].double().cpu().numpy()},
-                        slotr) for s in (ks, rs)]
+    decide = _replay(aggs, slotr, torch.stack(exps) if exps else
+                     torch.zeros(0, dtype=torch.int32),
+                     [pc for _, pc in plan.shadow_map], plan.int_map, S)
+    dec = [decide(ki, ks), decide(ri, rs)]
     if dec[0] != dec[1]:
         raise AssertionError(f"K2 case {name}: replay decisions differ")
     return err, plan, (inputs, sc, seg), dec[0]
 
 
 def _k4_inputs(keys, aggs, vals, mask, dense):
-    """(V, shadow columns, slot recipes) of one case's value matrix."""
+    """(V, shadow columns, replay decision) of one case's value matrix."""
     from pg_strom_tpu_torch.ops.preagg_mxu import (build_mxu_columns,
                                                    mxu_recipes,
                                                    mxu_shadow_cols)
-    V, _ = build_mxu_columns(keys, aggs, vals, mask, mask.shape[0],
-                             dense_key=dense)
+    V, exps = build_mxu_columns(keys, aggs, vals, mask, mask.shape[0],
+                                dense_key=dense)
     _, slotr, _ = mxu_recipes([k.t for k in keys], aggs,
                               [tuple(v.t for v in vs) for vs in vals],
                               dense_key=dense)
-    return V, mxu_shadow_cols(slotr), slotr
+    fc = mxu_shadow_cols(slotr)
+    return V, fc, _replay(aggs, slotr, exps, fc)
 
 
-def _k4_check(name, V, seg, G, n, fc, slotr, grid=None) -> int:
+def _k4_check(name, V, seg, G, n, fc, decide, grid=None) -> int:
     """max |kernel - plain| over ints after requiring bit-equal ints and
-    the same replay decision (`slotr` None: shadows to rel 1e-4 instead,
+    the same replay decision (`decide` None: shadows to rel 1e-4 instead,
     NaN and inf in place)."""
     import torch
     from pg_strom_tpu_torch.ops import preagg_pallas as pp
-    from pg_strom_tpu_torch.ops.preagg_mxu import mxu_overflow
     seg = seg.to(torch.int32).contiguous()
     ki, ks = pp.pallas_cuda(V, seg, G, n, fc, grid=grid)
     ri, rs = pp.pallas_reduce_reference(V, seg, G, n, fc)
@@ -631,12 +662,10 @@ def _k4_check(name, V, seg, G, n, fc, slotr, grid=None) -> int:
     if not torch.equal(ki, ri):
         raise AssertionError(f"K4 case {name} G={G}: ints differ from the "
                              f"plain version (max abs diff {err})")
-    if slotr is None:
+    if decide is None:
         same = torch.allclose(ks, rs, rtol=1e-4, atol=1e-3, equal_nan=True)
     else:
-        dec = [mxu_overflow({"mxu_fsums": s[:, fc].double().cpu().numpy()},
-                            slotr) for s in (ks, rs)]
-        same = dec[0] == dec[1]
+        same = decide(ki, ks) == decide(ri, rs)
     if not same:
         raise AssertionError(f"K4 case {name} G={G}: shadows differ")
     return err
@@ -645,8 +674,8 @@ def _k4_check(name, V, seg, G, n, fc, slotr, grid=None) -> int:
 def _k4_compare(name, keys, aggs, vals, mask, seg, G, n, dense, grid=None):
     """(max |kernel - plain| over ints, S) of K4 on one case's value
     matrix: ints bit-equal, the same replay decision."""
-    V, fc, slotr = _k4_inputs(keys, aggs, vals, mask, dense)
-    return _k4_check(name, V, seg, G, n, fc, slotr, grid), V.shape[1]
+    V, fc, decide = _k4_inputs(keys, aggs, vals, mask, dense)
+    return _k4_check(name, V, seg, G, n, fc, decide, grid), V.shape[1]
 
 
 def _k4_log_plan(name: str, G: int, S: int, n_sh: int, extra: str) -> None:
@@ -776,8 +805,8 @@ def phase_kernels_k2k4(seed: int, log2n: int) -> int:
     for i, (name, data, G) in enumerate(cases):
         keys, aggs, vals, mask, seg, G, dense = _k2_case(
             data, np.random.default_rng(seed * 1000 + 300 + i), N, dev, G)
-        V, fc, slotr = _k4_inputs(keys, aggs, vals, mask, dense)
-        worst = max(worst, _k4_check(name, V, seg, G, n, fc, slotr))
+        V, fc, decide = _k4_inputs(keys, aggs, vals, mask, dense)
+        worst = max(worst, _k4_check(name, V, seg, G, n, fc, decide))
         _k4_log_plan(name, G, V.shape[1], len(fc), "ints bit-equal to the "
                      "plain version, the same replay decision")
         del V
@@ -987,18 +1016,17 @@ def _time_chunk(db, gpu: str) -> dict:
     # the kernel's form of the SQL predicate (narrow_exact_casts)
     pred = resolve_function(">", (c["x"], Const(type=T.FLOAT4, value=0.25)))
     cols_host = [t.columns[nm] for nm in names]
+    aggs = [_agg("sum", c["x"]), _agg("count", c["x"]), _agg("sum", c["y"])]
     plan = derive_v2_plan(cols_host, schema_from_chunk_columns(names,
                                                                cols_host),
-                          [c["key"]], [_agg("sum", c["x"]),
-                                       _agg("count", c["x"]),
-                                       _agg("sum", c["y"])], pred, 4096)
+                          [c["key"]], aggs, pred, 4096)
     cc = next(iter(TCACHE.chunks_for(t, names, chunk_capacity(t.nrows))))
     scal = {"i": plan.scal_i, "u": plan.scal_u, "f4sc": plan.f4sc,
             "f4e": plan.f4e}
     planes = _kernel_planes(plan.sig, cc.planes)
     G, K = plan.G, plan.sig.ncols
     n_sh = len(plan.sig.shadow_map)
-    err = _compare(plan, pred, cc.planes, cc.nrows)
+    err = _compare(plan, aggs, pred, cc.planes, cc.nrows)
 
     def kern():
         return fused2_cuda(plan.sig, planes, cc.nrows, scal, G, pred)
@@ -2605,14 +2633,14 @@ def _k4_parent(root: str):
                                    ).pallas_cuda
 
 
-def _time_k4_at(name, V, seg, G, n, fc, slotr, parent, gpu) -> dict:
+def _time_k4_at(name, V, seg, G, n, fc, decide, parent, gpu) -> dict:
     """K4 and its plain version (plain, kernel, kernel, plain; with
     `parent`: plain, parent, kernel, kernel, parent, plain) on one value
     matrix, after requiring ints bit-equal to the plain version (the
     parent's too) and the same replay decision."""
     from pg_strom_tpu_torch.ops import preagg_pallas as pp
     import torch
-    err = _k4_check(f"{name} G={G}", V, seg, G, n, fc, slotr)
+    err = _k4_check(f"{name} G={G}", V, seg, G, n, fc, decide)
     if parent is not None and not torch.equal(
             parent(V, seg, G, n, fc)[0],
             pp.pallas_reduce_reference(V, seg, G, n, fc)[0]):
@@ -2704,7 +2732,7 @@ def _time_k4(db, gpu: str, parent=None) -> tuple[dict, dict]:
     from pg_strom_tpu_torch.ops.preagg_mxu import mxu_reduce
     res = {}
     keys, aggs, vals, mask, _, n = _t0_chunk_lanes(db, K4_TIMED_G[0])
-    V, fc, slotr = _k4_inputs(keys, aggs, vals, mask, True)
+    V, fc, decide = _k4_inputs(keys, aggs, vals, mask, True)
     S = V.shape[1]
     # one PyTorch call computing the same sums: index_add_ of the int64
     # value matrix into G+1 rows (row G takes the dropped rows); the int64
@@ -2714,7 +2742,7 @@ def _time_k4(db, gpu: str, parent=None) -> tuple[dict, dict]:
     for G in K4_TIMED_G:
         seg = _t0_chunk_lanes(db, G)[4].contiguous()
         res[G] = _time_k4_at("the agg_group chunk's value matrix", V, seg, G,
-                             n, fc, slotr, parent, gpu)
+                             n, fc, decide, parent, gpu)
         seg64 = seg[:n].to(torch.int64)
         lib = _time(lambda: torch.zeros(G + 1, S, dtype=torch.int64,
                                         device=V.device).index_add_(
@@ -2732,9 +2760,9 @@ def _time_k4(db, gpu: str, parent=None) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     keys, aggs, vals, mask, seg, G, dense = _k2_case(
         "corr_covar", np.random.default_rng(17), n, dev, 2048)
-    V, fc, slotr = _k4_inputs(keys, aggs, vals, mask, dense)
+    V, fc, decide = _k4_inputs(keys, aggs, vals, mask, dense)
     del keys, aggs, vals, mask
-    corr = _time_k4_at("corr's value matrix", V, seg, G, n, fc, slotr,
+    corr = _time_k4_at("corr's value matrix", V, seg, G, n, fc, decide,
                        parent, gpu)
     del V, seg
     torch.cuda.empty_cache()
@@ -3106,6 +3134,209 @@ def phase_float8(seed: int, log2n: int, host_log2n: int, gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: float sums whose groups sit far apart in scale
+# ---------------------------------------------------------------------------
+
+# groups 0..61 at scales 2^-60 ... 2^60, group 62 zeros, 63 float4
+# subnormals.  The bulk rows belong to groups 57..61 (scales 2^52 ... 2^60,
+# within 2^9 of the columns' largest |value|: no bucket's window check
+# trips there, on K1's column-wide window either); the tail chunk holds
+# every other group, so it is the one chunk with a hazard
+SW_BULK = (57, 62)
+SW_ZERO, SW_SUB = 62, 63
+SW_SUBNORMALS = (1.4e-45, 1e-40, 3e-39)
+SW_SQL = {"a": "select k, sum(a), avg(a) from sw group by k order by k",
+          "b": "select k, sum(b), avg(b) from sw group by k order by k"}
+# (name, query, settings, kernel): K1 sums float4 only
+SW_RUNS = (("K1", "a", {}, "K1"),
+           ("K2", "a", {"use_fused_preagg2": False}, "K2"),
+           ("K2", "b", {}, "K2"),
+           ("K4", "a", {"use_fused_preagg": False, "use_pallas_reduce": True},
+            "K4"),
+           ("K4", "b", {"use_fused_preagg": False, "use_pallas_reduce": True},
+            "K4"))
+SW_TAIL_LOG2 = 16
+
+
+def _sw_exp(g: int) -> int:
+    return -60 + (120 * g) // 61
+
+
+def _sw_db(seed: int, bulk_log2: int, tail_log2: int):
+    """A port Database holding sw(k int4, a float4, b float8): 2^bulk_log2
+    rows of groups SW_BULK, then a 2^tail_log2-row tail of every other
+    group in random order with random signs.  Returns (db, numpy
+    columns)."""
+    import numpy as np
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.datastore import (Database, Table,
+                                              column_from_numpy as cn)
+    rng = np.random.default_rng(seed)
+    nb, nt = 1 << bulk_log2, 1 << tail_log2
+    kt = rng.integers(0, 64 - (SW_BULK[1] - SW_BULK[0]), nt).astype(np.int32)
+    kt = np.where(kt >= SW_BULK[0], kt + (SW_BULK[1] - SW_BULK[0]), kt)
+    k = np.concatenate([rng.integers(*SW_BULK, nb, dtype=np.int32), kt])
+    n = nb + nt
+    scale = np.ldexp(1.0, np.asarray([_sw_exp(g) for g in range(62)]
+                                     + [0, 0])[k])
+    sign = np.ones(n)
+    sign[nb:] = np.where(rng.random(nt) < 0.5, -1.0, 1.0)
+    a = (sign * scale * (1.0 + rng.random(n))).astype(np.float32)
+    b = sign * scale * (1.0 + rng.random(n))
+    sub = np.asarray(SW_SUBNORMALS, np.float32)[rng.integers(0, 3, n)]
+    a = np.where(k == SW_SUB, sub * sign.astype(np.float32), a)
+    a = np.where(k == SW_ZERO, np.float32(0.0) * sign.astype(np.float32), a)
+    b = np.where(k == SW_SUB, a.astype(np.float64), b)
+    b = np.where(k == SW_ZERO, 0.0 * sign, b)
+    db = Database()
+    db.create(Table.from_columns("sw", {"k": cn(T.INT4, k),
+                                        "a": cn(T.FLOAT4, a),
+                                        "b": cn(T.FLOAT8, b)}))
+    return db, {"k": k, "a": a, "b": b, "nb": nb}
+
+
+def _sw_expected(col: str, c) -> dict:
+    """k -> (sum, avg) in PostgreSQL's terms: a bulk group's device sum is
+    exact (float64 bincount, rel 1e-9 of it), a tail group replays on the
+    host and sums stepwise in row order (float4 sum in float32, the rest
+    in float64)."""
+    import numpy as np
+    k, v, nb = c["k"], c[col], c["nb"]
+    out = {}
+    bulk = np.bincount(k[:nb], weights=v[:nb].astype(np.float64),
+                       minlength=64)
+    nbulk = np.bincount(k[:nb], minlength=64)
+    for g in range(*SW_BULK):
+        out[g] = (bulk[g], bulk[g] / nbulk[g])
+    kt, vt = k[nb:], v[nb:]
+    for g in np.unique(kt):
+        x = vt[kt == g]
+        s = float(np.cumsum(x, dtype=np.float32)[-1] if col == "a"
+                  else np.cumsum(x)[-1])
+        out[int(g)] = (s, float(np.cumsum(x.astype(np.float64))[-1])
+                       / len(x))
+    return out
+
+
+def _sw_close(got, want, rel: float) -> bool:
+    """Relative only: the point of this phase is values near 2^-60 and
+    the subnormals, which any absolute tolerance would pass."""
+    return got == want or math.isclose(got, want, rel_tol=rel, abs_tol=0.0)
+
+
+def _sw_check(name: str, col: str, rows, want) -> None:
+    if [r[0] for r in rows] != sorted(want):
+        raise AssertionError(f"4i {name}({col}): groups {[r[0] for r in rows]}")
+    for g, s, avg in rows:
+        ws, wa = want[g]
+        rel = 1e-6 if col == "a" else 1e-9     # float4 sum: one f32 rounding
+        if not (_sw_close(s, ws, rel) and _sw_close(avg, wa, 1e-9)):
+            raise AssertionError(f"4i {name}({col}) group {g} (scale "
+                                 f"2^{_sw_exp(g) if g < 62 else 0}): "
+                                 f"{(s, avg)} vs numpy {(ws, wa)}")
+
+
+def _sw_run(db, sql: str, cfg: dict):
+    """(rows, counts, host replay seconds, wall seconds, output types) of
+    one query."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    t0 = time.perf_counter()
+    with override(perfmon=True, debug_force_offload=True,
+                  debug_force_tpupreagg=True, **cfg):
+        pq = plan_query(ast.parse(sql), db)
+        rows = pq.execute()
+    torch.cuda.synchronize()
+    return (rows, dict(pq.perfmon.counts),
+            pq.perfmon.times.get("cpu_fallback", 0.0),
+            time.perf_counter() - t0, pq.out_types)
+
+
+def _sw_launches() -> dict:
+    from pg_strom_tpu_torch.ops import (preagg_fused as pf,
+                                        preagg_fused2 as pf2,
+                                        preagg_pallas as pp)
+    return {"K1": pf2.fused2_cuda.launches, "K2": pf.fused_cuda.launches,
+            "K4": pp.pallas_cuda.launches}
+
+
+def phase_sum_window(seed: int, log2n: int, gpu: str) -> dict:
+    """sw at 2^log2n bulk rows plus a 2^SW_TAIL_LOG2-row tail, in chunks
+    of 2^(log2n - 4) rows: sum and avg of a (float4) and b (float8) through
+    K1, K2 and K4, cold and 3 warm, each group against numpy, recheck_chunks
+    1 (the tail chunk) on every run; then a 2^16-row bulk with a 2^12-row
+    tail, each route equal to the port's host tier as PostgreSQL text."""
+    import torch
+    from pg_strom_tpu_torch.exec.devcache import TCACHE
+    from pg_strom_tpu_torch.sql.api import Result
+    t_phase = time.perf_counter()
+    db, c = _sw_db(seed + 12, log2n, SW_TAIL_LOG2)
+    cfg0 = {"chunk_rows": 1 << (log2n - 4)}
+    nchunks = 16 + 1
+    want = {col: _sw_expected(col, c) for col in SW_SQL}
+    _log(f"4i: sw {c['nb']} + {1 << SW_TAIL_LOG2} rows generated, {nchunks} "
+         f"chunks, expected sums in {time.perf_counter() - t_phase:.1f} s")
+    TCACHE.clear()
+    out = {"runs": {}, "launches": {"K1": 0, "K2": 0, "K4": 0}}
+    for name, col, cfg, kern in SW_RUNS:
+        runs, replay = [], []
+        before = _sw_launches()
+        for i in range(4):
+            rows, counts, host_s, dt, _ = _sw_run(db, SW_SQL[col],
+                                                  dict(cfg0, **cfg))
+            _sw_check(name, col, rows, want[col])
+            if (counts.get("recheck_chunks", 0) != 1
+                    or counts.get("device_chunks", 0) != nchunks - 1):
+                raise AssertionError(f"4i {name}({col}): perfmon {counts}: "
+                                     "expected the tail chunk alone "
+                                     "replayed")
+            runs.append(dt)
+            replay.append(host_s)
+        n_l = {kk: v - before[kk] for kk, v in _sw_launches().items()}
+        if n_l[kern] < 4 * (nchunks - 1):
+            raise AssertionError(f"4i {name}({col}): {kern} launched "
+                                 f"{n_l[kern]} times in 4 runs")
+        for kk, v in n_l.items():
+            out["launches"][kk] += v
+        out["runs"][f"{name}_{col}"] = {
+            "cold_ms": runs[0] * 1e3,
+            "warm_ms": statistics.median(runs[1:]) * 1e3,
+            "replay_ms": statistics.median(replay[1:]) * 1e3,
+            "launches": n_l}
+        _log(f"4i {name} {SW_SQL[col]!r} [{gpu}]: 64 groups against numpy; "
+             f"recheck_chunks 1 (the {1 << SW_TAIL_LOG2}-row tail), "
+             f"{nchunks - 1} device chunks; {kern} launches {n_l[kern]}; "
+             f"cold {runs[0] * 1e3:.3f} ms, warm median "
+             f"{statistics.median(runs[1:]) * 1e3:.3f} ms of "
+             f"{[round(r * 1e3, 3) for r in runs[1:]]}, host replay median "
+             f"{statistics.median(replay[1:]) * 1e3:.3f} ms (perfmon on)")
+    del db
+    TCACHE.clear()
+    torch.cuda.empty_cache()
+
+    db, c = _sw_db(seed + 13, 16, 12)
+    for name, col, cfg, kern in SW_RUNS:
+        def text(cfg_):
+            rows, counts, _, _, types = _sw_run(db, SW_SQL[col], cfg_)
+            return Result(columns=["k", "sum", "avg"], rows=rows,
+                          types=types).formatted(-3), counts
+        host, _ = text({"enabled": False})
+        got, counts = text({"chunk_rows": 1 << 14, **cfg})
+        if got != host or counts.get("recheck_chunks", 0) != 1:
+            raise AssertionError(f"4i {name}({col}) at 2^16 + 2^12 rows: "
+                                 f"perfmon {counts}; device {got[:4]} vs "
+                                 f"host tier {host[:4]}")
+    _log(f"4i at 2^16 + 2^12 rows [{gpu}]: K1, K2 and K4 equal to the host "
+         "tier as PostgreSQL text, the tail chunk replayed")
+    del db
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"phase 4i: {out['seconds']:.1f} s [{gpu}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: device path vs host-exact tier
 # ---------------------------------------------------------------------------
 
@@ -3325,6 +3556,7 @@ def main(argv=None) -> int:
                         min(args.window_rows_log2, args.rows_log2))
     f8 = phase_float8(args.seed, args.rows_log2 - 1,
                       min(F8_HOST_ROWS_LOG2, args.rows_log2 - 1), gpu)
+    sw = phase_sum_window(args.seed, args.rows_log2 - 1, gpu)
     phase_small(args.seed)
     _log(f"total {time.perf_counter() - t_start:.1f} s [{gpu}]")
 
@@ -3338,7 +3570,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "pg_strom_tpu_torch/ops/cuda/preagg_fused2.cu",
         "replaces": "pg_strom_tpu/ops/preagg_fused2.py:625",
-        "launches": timing["launches"],
+        "launches": timing["launches"] + sw["launches"]["K1"],
         "max_abs_err": max(err, timing["chunk_err"]),
         **{c: timing[c] for c in cols},
     }, {
@@ -3346,7 +3578,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "pg_strom_tpu_torch/ops/cuda/preagg_fused.cu",
         "replaces": "pg_strom_tpu/ops/preagg_fused.py:284",
-        "launches": t0db["k2_launches"] + f8["k2_launches"],
+        "launches": (t0db["k2_launches"] + f8["k2_launches"]
+                     + sw["launches"]["K2"]),
         "max_abs_err": max([err] + [c["err"] for c in chunk.values()]),
         **{c: chunk[32][c] for c in cols},
     }, {
@@ -3362,7 +3595,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "pg_strom_tpu_torch/ops/cuda/preagg_pallas.cu",
         "replaces": "pg_strom_tpu/ops/preagg_pallas.py:46",
-        "launches": k4["launches"],
+        "launches": k4["launches"] + sw["launches"]["K4"],
         "max_abs_err": max([err, k4["corr"]["err"]]
                            + [c["err"] for c in k4["chunk"].values()]),
         **{c: k4["chunk"][32][c] for c in cols},

@@ -29,6 +29,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace onehot {
@@ -76,8 +77,12 @@ struct Sink {
   __device__ __forceinline__ void digit(int c, int d) const {
     if (d != 0 && c >= c0 && c < c1) atomicAdd(row + (c - c0), (unsigned)d);
   }
+  // a nonzero |x| below FLT_MIN adds as +-FLT_MIN: the global flush
+  // (REDG.ADD.F32.FTZ) would drop a block's subnormal sum, and the host's
+  // digit-window check must see every nonzero row (preagg_mxu.SHADOW_MIN)
   __device__ __forceinline__ void shadow(int c, int si, float x) const {
-    if (x != 0.f && c >= c0 && c < c1) atomicAdd(sh + si, x);
+    if (x != 0.f && c >= c0 && c < c1)
+      atomicAdd(sh + si, fabsf(x) < FLT_MIN ? copysignf(FLT_MIN, x) : x);
   }
 };
 

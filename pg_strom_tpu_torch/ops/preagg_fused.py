@@ -40,7 +40,7 @@ import torch
 from ..sqltypes import T
 from .preagg_mxu import (F4_LIMBS, _kind_mxu_ok, _f4_scale_exp,
                          _f64_quantity, _f64_blocks_enabled, f64_head_tail,
-                         mxu_recipes,
+                         mxu_recipes, shadow_cell,
                          mxu_shadow_cols, _KEY_WIDE_TYPES, _F64_KINDS)
 
 MAX_G = 1 << 11
@@ -319,9 +319,9 @@ def fused_reference(plan: _Plan, seg: torch.Tensor, inputs,
             elif name == "f4s":
                 V[:, col:col + F4_LIMBS] = _f4s_digits(lane, sc[slot])
             elif name == "fabs":
-                Sh[:, col] = lane.abs()
+                Sh[:, col] = shadow_cell(lane.abs())
             else:                                   # "f32"
-                Sh[:, col] = lane
+                Sh[:, col] = shadow_cell(lane)
         ints.index_add_(0, sg, V)
         if Sh is not None:
             shadow.index_add_(0, sg, Sh)

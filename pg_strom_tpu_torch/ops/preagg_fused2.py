@@ -6,7 +6,7 @@ storage planes and derives mask, bucket ids, limbs and digits inside one
 Pallas kernel, then contracts a one-hot bucket matrix with the value
 matrix on the TPU's MXU.  This module ports it to PyTorch/CUDA:
 
-* **Plan derivation is copied unchanged** (`V2Sig`, `V2Plan`,
+* **Plan derivation is copied** (`V2Sig`, `V2Plan`,
   `derive_v2_plan`, `_pred_kernel_safe`, `_f4_stats`): numpy over exact
   column statistics (datastore.column_stats).  Integer sums encode
   v - min in 8-bit limbs, float4 sums a signed digit window anchored at
@@ -14,7 +14,10 @@ matrix on the TPU's MXU.  This module ports it to PyTorch/CUDA:
   plan keeps the reference's TPU-only fields (`bool_inputs`, `i8`,
   `biased_cols`, the int64 "lo"/"hi" inputs) so the two packages derive
   equal plans; the port maps both int64 inputs onto the raw int64 plane
-  and emits unbiased sums.
+  and emits unbiased sums.  One difference: a float4 sum column whose
+  range does not fit its digit window keeps its |v| shadow, so the host's
+  window check can replay a chunk where the window dropped a group's
+  rows (`_f4_stats`; the reference drops the shadow and sums them to 0).
 * **One fixed kernel, driven by tables** (ops/cuda/preagg_fused2.cu, a
   row decoder on the accumulation core ops/cuda/onehot_accum.cuh,
   launched as ops/launch_plan.py plans).
@@ -54,12 +57,15 @@ import torch
 
 from ..sqltypes import T
 from ..expr.ir import Expr, ColumnRef, Const, FuncExpr, BoolExpr, NullTest
-from .preagg_mxu import _SlotRecipe, F4_LIMBS
+from .preagg_mxu import _SlotRecipe, F4_LIMBS, shadow_cell
 
 LANES = 128
 F4_WINDOW_BITS = 72   # == preagg_mxu.F4_WINDOW (host divides by 2^72)
 
 _KEY_TYPES = (T.INT4, T.DATE, T.TEXT, T.BPCHAR, T.BOOL)
+# i8 mode's float4 digits: 11 limbs of 7 bits (a 77-bit window)
+_I8_DBITS = 7
+_I8_CAP = 11
 
 
 # ---------------------------------------------------------------------------
@@ -194,24 +200,34 @@ def _pred_kernel_safe(e: Optional[Expr], schema) -> bool:
     return ok(e)
 
 
-def _f4_stats(ast):
-    """(mx, shadow_needed) for a float4 sum column; None => v2-ineligible
-    (+-Inf makes the max-anchored window meaningless and a chunk WITHOUT
-    the Inf row could emit garbage digits under a finite shadow)."""
+def _f4_stats(ast, window_bits: int):
+    """(mx, shadow_needed) for a float4 sum column whose digit window holds
+    window_bits bits; None => v2-ineligible (+-Inf makes the max-anchored
+    window meaningless and a chunk WITHOUT the Inf row could emit garbage
+    digits under a finite shadow)."""
     if (ast.min_val is not None
             and not (math.isfinite(ast.min_val)
                      and math.isfinite(ast.max_val))):
         return None
     mx = float(ast.max_val) if ast.min_val is not None else 0.0
     mx = max(mx, abs(float(ast.min_val or 0.0)))
-    # the |v| shadow guards two hazards: non-finite inputs (NaN rows
-    # contribute no digits and must force host replay) and PostgreSQL's
-    # stepwise-f32 overflow error.  Statistics prove both away for most
-    # columns: all-finite data with nrows*max|v| far below f32-max can
-    # neither produce garbage digits nor overflow mid-sum.
+    # the |v| shadow guards three hazards: non-finite inputs (NaN rows
+    # contribute no digits and must force host replay), PostgreSQL's
+    # stepwise-f32 overflow error, and rows whose bits fall below the
+    # window, which the host's window check (preagg_mxu.window_lossy) reads
+    # from the shadow.  Statistics prove all three away for most columns:
+    # all-finite data with nrows*max|v| far below f32-max, and a range
+    # from the largest |v| down to the last mantissa bit of the smallest
+    # nonzero |v| that fits the window (a value in [2^(e-1), 2^e) has no
+    # bit below 2^(e-24)).  No minabs proves no range.
+    out_of_window = mx > 0.0 and (
+        ast.minabs is None
+        or (math.frexp(mx)[1] - math.frexp(ast.minabs)[1] + 24
+            > window_bits))
     need_shadow = (ast.has_nan
                    or (ast.n_valid > 0 and ast.min_val is None)
-                   or ast.nrows * mx >= 1e38)
+                   or ast.nrows * mx >= 1e38
+                   or out_of_window)
     return mx, need_shadow
 
 
@@ -302,7 +318,8 @@ def derive_v2_plan(columns: Sequence, schema, group_exprs, aggs,
             a = inst.args[0] if inst.args else None
             if (a is not None and isinstance(a, ColumnRef)
                     and "sum_f" in inst.slots and a.type is T.FLOAT4):
-                fs = _f4_stats(column_stats(columns[a.index]))
+                fs = _f4_stats(column_stats(columns[a.index]),
+                               _I8_CAP * _I8_DBITS)
                 if fs is None or fs[1]:
                     want_i8 = False
                     break
@@ -470,7 +487,11 @@ def derive_v2_plan(columns: Sequence, schema, group_exprs, aggs,
                 din = get_in(a.index, "data")
                 vin = get_valid(a.index)
                 nf = len(f4sc)
-                fs = _f4_stats(ast)
+                # i8 mode: 7-bit signed digits (fit int8 with the sign
+                # folded in); cap 11 limbs keeps >= the 72-bit window.
+                dbits = _I8_DBITS if want_i8 else 8
+                cap = _I8_CAP if want_i8 else F4_LIMBS
+                fs = _f4_stats(ast, cap * dbits)
                 if fs is None:
                     return None            # +-Inf column: v1 owns it
                 mx, need_shadow = fs
@@ -483,10 +504,6 @@ def derive_v2_plan(columns: Sequence, schema, group_exprs, aggs,
                 # |v|) has no mantissa bit below 2^(Emin-1-23); a window
                 # whose floor E-dbits*nl reaches it captures EVERY row's
                 # full f32 mantissa, so fewer limb columns lose nothing.
-                # i8 mode: 7-bit signed digits (fit int8 with the sign
-                # folded in); cap 11 limbs keeps >= the 72-bit window.
-                dbits = 7 if want_i8 else 8
-                cap = 11 if want_i8 else F4_LIMBS
                 nl = cap
                 if mx == 0.0:
                     nl = 1                 # only zeros (or nothing) to sum
@@ -897,7 +914,8 @@ def fused2_reference(sig: V2Sig, planes: Sequence[torch.Tensor], nrows: int,
                     & ((1 << DB) - 1)
                 V[:, col + j] = torch.where(neg, -dg, dg)
         elif tag == OP_FABS:
-            S[:, col] = torch.where(ok, planes[din][:n], zero32f).abs()
+            S[:, col] = shadow_cell(
+                torch.where(ok, planes[din][:n], zero32f).abs())
         else:                                         # pragma: no cover
             raise AssertionError(tag)
     ints.index_add_(0, seg, V)

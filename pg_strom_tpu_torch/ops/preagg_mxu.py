@@ -90,6 +90,53 @@ def f64_out_of_domain(q: torch.Tensor) -> torch.Tensor:
     return (a > F64_SUM_MAX) | ((a < F64_SUM_MIN) & (a != 0))
 
 
+# A float slot's digit window keeps each row's bits down to its LSB,
+# 2^(E - F4_WINDOW) for the window exponent E the slot publishes in
+# mxu_f4exps (the v2 plan publishes an E adjusted for its limb count), so
+# bucket g of n_g rows (column 0) loses less than n_g * LSB; a double-float
+# slot less than n_g * (LSB_head + LSB_tail).  The window's top follows the
+# largest |value| of the chunk (of the column, on the v2 plan), so a group
+# whose values lie some 2^48 below another group's loses them all.  The
+# host replays the chunk when that bound exceeds 2^-(p + WINDOW_MARGIN_BITS)
+# of the bucket's absolute mass A_g (its shadow column: sum |v| or
+# sum |head|, which no cancellation shrinks): p is the bits of the answer,
+# 24 for sum(float4), whose result is a float4, and 53 for every float8
+# answer (avg and the variance family over a float4 accumulate in float8,
+# as PostgreSQL's float4_accum does).  The margin keeps the dropped part
+# 2^-8 below the answer's last bit and covers a shadow that reads high by
+# up to 2^8: bf16 shadow cells in the value matrix (K4, mxu_reduce) are
+# within 2^-8 of |v|, and the f32 shadow sums of K1, K2 and K4 drift far
+# less.  A_g = 0 means every row was +-0 or NULL: the sum is exact.  t0's
+# float8 sums (values in [0, 100), each group's mean near 50) clear the
+# check by more than 9 bits; the flagship's v2 plan keeps no shadow.
+WINDOW_MARGIN_BITS = 8
+# shadow cells hold a nonzero |v| below the smallest normal float32 as
+# 2^-126: the card's global float atomics (REDG.ADD.F32.FTZ) flush a
+# block's subnormal shadow sum, and bf16 cells drop |v| below 2^-133.  A
+# float4 holds no bit below 2^-149, so where the window's LSB is finer a
+# subnormal row loses nothing, and where it is coarser n_g * LSB exceeds
+# n_g * 2^-126 * 2^-(p + WINDOW_MARGIN_BITS) and the chunk replays.
+SHADOW_MIN = 2.0 ** -126
+
+
+def shadow_cell(x: torch.Tensor) -> torch.Tensor:
+    """x as a shadow cell: a nonzero |x| below SHADOW_MIN reads as
+    +-SHADOW_MIN (NaN and inf kept; the kernels' onehot::Sink::shadow)."""
+    a = x.abs()
+    return torch.where((a > 0) & (a < SHADOW_MIN),
+                       torch.full_like(x, SHADOW_MIN).copysign(x), x)
+
+
+def window_lossy(nrows, lsb, mass, bits: int) -> bool:
+    """True when some bucket's digit window may have dropped more than
+    2^-(bits + WINDOW_MARGIN_BITS) of its absolute mass: nrows and mass per
+    bucket, lsb the window's resolution (see WINDOW_MARGIN_BITS)."""
+    lost = np.asarray(nrows, np.float64) * lsb
+    mass = np.asarray(mass, np.float64)
+    return bool(np.any((mass > 0) & (lost > np.ldexp(
+        mass, -(bits + WINDOW_MARGIN_BITS)))))
+
+
 def f64_head_tail(q: torch.Tensor):
     """(head, tail) f32 lanes of quantity q; a row outside the domain gets
     an inf head, which the inf/nan shadow guard turns into a replay."""
@@ -352,7 +399,8 @@ def build_mxu_columns(key_vals, aggs, arg_vals, mask: torch.Tensor, n: int,
                 sc, e = _f4_scale_exp(absx)
                 f4_exps.append(e)
                 cols.extend(_f4_limb_cols(x, sc))
-                cols.append(_mask0(a.data.to(torch.float32).abs(), ok))
+                cols.append(shadow_cell(_mask0(a.data.to(torch.float32).abs(),
+                                               ok)))
             else:
                 # f64 additive quantity q -> head f32(q) + tail f32(q - head)
                 hi, lo = f64_head_tail(_f64_quantity(kind, vals, ok))
@@ -501,13 +549,20 @@ def _decode_key(t: T, raw: int, meta):
     return int(raw)
 
 
-def mxu_overflow(out, slot_recipes) -> bool:
+def mxu_overflow(out, slot_recipes, aggs) -> bool:
     """Any additive slot outside its exact window => host replay.
 
-    mxu_fsums carries ONLY the shadow columns (mxu_shadow_cols order)."""
+    mxu_fsums carries ONLY the shadow columns (mxu_shadow_cols order);
+    aggs[i] owns slot_recipes[i] (its aggname sets a float sum's bits)."""
+    sums = np.asarray(out["mxu_sums"])
     fsums = np.asarray(out["mxu_fsums"])
+    exps = np.asarray(out["mxu_f4exps"])
     spos = {c: i for i, c in enumerate(mxu_shadow_cols(slot_recipes))}
-    for d in slot_recipes:
+
+    def lsb(slot_no: int) -> float:
+        return 2.0 ** (int(exps[slot_no]) - F4_WINDOW)
+
+    for inst, d in zip(aggs, slot_recipes):
         for kind, r in d.items():
             if kind == "sum_i" and r.shadow >= 0 and np.any(
                     fsums[:, spos[r.shadow]] > float(1 << 61)):
@@ -515,8 +570,9 @@ def mxu_overflow(out, slot_recipes) -> bool:
             if kind == "sum_f" and not r.lo_limbs:
                 if r.shadow < 0:
                     # v2 stats-elided shadow: column proven all-finite with
-                    # nrows*max|v| far below f32-max — neither garbage
-                    # digits nor PG stepwise overflow is possible
+                    # nrows*max|v| far below f32-max and every row's bits
+                    # inside the window — neither garbage digits, dropped
+                    # bits nor PG stepwise overflow is possible
                     continue
                 sh = fsums[:, spos[r.shadow]]
                 # PG sums float4 stepwise in f32: if the absolute mass could
@@ -526,12 +582,18 @@ def mxu_overflow(out, slot_recipes) -> bool:
                 if (np.any(np.isinf(sh)) or np.any(np.isnan(sh))
                         or np.any(sh > 3.0e38)):
                     return True
+                if window_lossy(sums[:, 0], lsb(r.f4_slot_no), sh,
+                                24 if inst.aggname == "sum" else 53):
+                    return True
             elif r.lo_limbs:
                 # f64 double-float block: inf/nan head (a quantity outside
                 # the lanes' domain, which f64_head_tail marks inf, or a
                 # nan input) => host replay
                 sh = fsums[:, spos[r.shadow]]
                 if np.any(np.isinf(sh)) or np.any(np.isnan(sh)):
+                    return True
+                if window_lossy(sums[:, 0], lsb(r.f4_slot_no)
+                                + lsb(r.lo_slot_no), sh, 53):
                     return True
     return False
 
@@ -576,18 +638,16 @@ def mxu_extract_slot(r: _SlotRecipe, out, g: int) -> dict:
 
 
 def _dyadic_float(M: int, e: int) -> float:
-    """Correctly rounded float of M * 2^e for arbitrary-width int M."""
-    if M == 0:
-        return 0.0
+    """Correctly rounded float of M * 2^e for arbitrary-width int M.
+
+    Python's int / int rounds once, to nearest even.  The reference keeps
+    the top 63 bits of M and lets float() round those: where the bits it
+    drops are not all zero and the kept ones sit exactly halfway between
+    two floats, it rounds to even where the true value lies above the
+    halfway point (tests/test_torch_sum_window.py)."""
     if e >= 0:
-        f = float(M)                      # one rounding
-        return f * (2.0 ** e) if e < 1024 else float(M << e)
-    # M / 2^-e: keep 54+ significant bits, let float division round once
-    shift = max(M.bit_length() - 63, 0)
-    if shift <= -e:
-        return float(M >> shift) / float(1 << (-e - shift)) if -e - shift < 1024 \
-            else float(M >> shift) * (2.0 ** (e + shift))
-    return float(M) * (2.0 ** e)
+        return float(M << e)
+    return M / (1 << -e)
 
 
 # ---------------------------------------------------------------------------
@@ -632,7 +692,7 @@ def mxu_absorb(out_host, group_exprs, aggs, key_metas, states, displays,
         collision, groups = mxu_host_groups(out_host, keyr, key_metas)
         if collision:
             return True, False
-    if mxu_overflow(out_host, slotr):
+    if mxu_overflow(out_host, slotr, aggs):
         return False, True
     slots = [{k: np.asarray(v) for k, v in d.items()}
              for d in out_host["slots"]]

@@ -45,8 +45,8 @@ def test_kernel_matches_plain_version(cuda_device, name):
         plan = derive_v2_plan(cols, schema_from_chunk_columns(
             t.column_names, cols), groups, aggs, pred, 4096)
     assert plan is not None
-    assert cs._compare(plan, pred, cs._device_cols(t, cuda_device),
-                       n - 37) == 0
+    assert cs._compare(plan, aggs, pred,
+                       cs._device_cols(t, cuda_device), n - 37) == 0
 
 
 @pytest.mark.gpu
@@ -58,8 +58,8 @@ def test_kernel_edge_matches_plain_version(cuda_device, name):
     t = cs._case_table(name, np.random.default_rng(8), n)
     pred, groups, aggs = cs._case_query(name, cs._cols(t))
     plan = cs._k1_plan(t, name, pred, groups, aggs)
-    assert cs._compare(plan, pred, cs._device_cols(t, cuda_device),
-                       n - 37) == 0
+    assert cs._compare(plan, aggs, pred,
+                       cs._device_cols(t, cuda_device), n - 37) == 0
 
 
 @pytest.mark.gpu

@@ -105,7 +105,7 @@ def _mxu_both(keys, key_types, slots_list, args, arg_types, seg, G, n):
     assert np.array_equal(ro["mxu_sums"], po["mxu_sums"])
     assert np.array_equal(ro["mxu_f4exps"], po["mxu_f4exps"])
     assert np.array_equal(ro["mxu_fsums"], po["mxu_fsums"], equal_nan=True)
-    assert r_mxu.mxu_overflow(ro, rs) == p_mxu.mxu_overflow(po, ps)
+    assert r_mxu.mxu_overflow(ro, rs) == p_mxu.mxu_overflow(po, ps, insts)
     if keys:
         rc, rg = r_mxu.mxu_host_groups(ro, rk, [None] * len(keys))
         pc, pg = p_mxu.mxu_host_groups(po, pk, [None] * len(keys))

@@ -392,8 +392,8 @@ def test_k4_plain_matches_reference_mxu_reduce():
             RDVal(R.T.INT8, jnp.asarray(rng.integers(-(1 << 50), 1 << 50, N)),
                   jnp.asarray(rng.random(N) > 0.1))]
     mask = jnp.asarray(rng.random(N) > 0.05)
-    V, _ = r_mxu.build_mxu_columns(vals[:1], ra, [[vals[1]], [vals[2]],
-                                                  [vals[2]]], mask, N)
+    V, exps = r_mxu.build_mxu_columns(vals[:1], ra, [[vals[1]], [vals[2]],
+                                                     [vals[2]]], mask, N)
     _, slotr, S = r_mxu.mxu_recipes([R.T.INT4], ra,
                                     [(R.T.FLOAT4,), (R.T.INT8,), (R.T.INT8,)])
     fcols = r_mxu.mxu_shadow_cols(slotr)
@@ -409,5 +409,7 @@ def test_k4_plain_matches_reference_mxu_reduce():
     assert not ints.numpy()[:, fcols].any()
     pfs = shadow.numpy()[:, fcols].astype(np.float64)
     np.testing.assert_allclose(pfs, rfs, rtol=1e-2)
+    exps = np.asarray(exps)
     assert (r_mxu.mxu_overflow({"mxu_fsums": rfs}, slotr)
-            == p_mxu.mxu_overflow({"mxu_fsums": pfs}, slotr))
+            == p_mxu.mxu_overflow({"mxu_sums": ints.numpy(), "mxu_fsums": pfs,
+                                   "mxu_f4exps": exps}, slotr, ra))

@@ -297,6 +297,32 @@ def _both(overrides):
         yield
 
 
+# Cases whose float4 sum column spans more than its digit window (1e30
+# beside 1e-40): the reference drops the |v| shadow and, with it, any way
+# to see that the window lost rows (a known fault of the reference, ROADMAP
+# section 3); the port keeps the shadow for its window check.  There the
+# reference is derived with its _f4_stats reporting the shadow needed,
+# which is the port's plan.
+WINDOW_SHADOW_CASES = ("f4_denormal_clamp",)
+
+
+@contextlib.contextmanager
+def _reference_keeps_window_shadow(name):
+    if name not in WINDOW_SHADOW_CASES:
+        yield
+        return
+    real = r_f2._f4_stats
+
+    def needed(ast):
+        fs = real(ast)
+        return None if fs is None else (fs[0], True)
+    r_f2._f4_stats = needed
+    try:
+        yield
+    finally:
+        r_f2._f4_stats = real
+
+
 def _setup(name):
     factory, query, ovr = CASES[name]
     rt = factory()
@@ -332,9 +358,14 @@ def _pad_cap(n: int) -> int:
 def test_plan_and_op_level_match_reference(name):
     rt, pt, rq, pq, ovr = _setup(name)
     with _both(ovr):
-        rplan = _derive(r_f2, r_schema, rt, rq)
+        if name in WINDOW_SHADOW_CASES:
+            # the recorded fault: no shadow in the reference's own plan
+            assert not _derive(r_f2, r_schema, rt, rq).sig.shadow_map
+        with _reference_keeps_window_shadow(name):
+            rplan = _derive(r_f2, r_schema, rt, rq)
         pplan = _derive(p_f2, p_schema, pt, pq)
     assert rplan is not None and pplan is not None
+    assert bool(pplan.sig.shadow_map) >= (name in WINDOW_SHADOW_CASES)
     assert dataclasses.asdict(rplan.sig) == dataclasses.asdict(pplan.sig)
     assert _asdict_recipes(rplan.recipes) == _asdict_recipes(pplan.recipes)
     for f in ("scal_i", "scal_u", "f4sc", "f4e"):
@@ -376,7 +407,8 @@ def test_plan_and_op_level_match_reference(name):
                           pout["mxu_f4exps"])
     assert int(rout["dense_kmin"]) == int(pout["dense_kmin"])
     assert int(rout["dense_rng"]) == int(pout["dense_rng"])
-    assert r_overflow(rout, rplan.recipes) == p_overflow(pout, pplan.recipes)
+    assert r_overflow(rout, rplan.recipes) == p_overflow(pout, pplan.recipes,
+                                                         paggs)
     # the shadow is a replay guard: same decision, values to rel 1e-2.  The
     # TPU's one-hot matmul also spreads a NaN row to every bucket
     # (0 * NaN), the port keeps it in its own bucket: compare where the
