@@ -36,6 +36,7 @@ import torch
 from ..config import config
 from ..datastore import Table, Chunk
 from ..expr.lower_torch import planes_of_column
+from ..utils.perfmon import span
 
 
 # the default budget when config.device is the CPU (tests, rehearsals)
@@ -191,7 +192,7 @@ class DeviceChunkCache:
             ids = ("norows", n) + tuple(
                 c.uid for c in table.columns.values())
         key = ("chunks", ids, cap, str(dev))
-        with self._mu:
+        with span("chunks", pm), self._mu:
             self._sweep()
             ent = self._lru.get(key)
             if ent is not None:
@@ -217,8 +218,9 @@ class DeviceChunkCache:
         chunks: list[CachedChunk] = []
         nbytes = 0
         for start in range(0, n, cap):
-            cc, up = self._load(table, names, start, min(start + cap, n),
-                                cap, dev, pm)
+            with span("chunks", pm):
+                cc, up = self._load(table, names, start,
+                                    min(start + cap, n), cap, dev, pm)
             nbytes += up
             chunks.append(cc)
             yield cc
@@ -238,7 +240,8 @@ class DeviceChunkCache:
         up = sum(p.nbytes for ps in host_planes for p in ps)
         if pm is not None:
             pm.add_bytes("h2d", up)
-        planes = tuple(_upload(ps, dev) for ps in host_planes)
+        with span("upload", pm):
+            planes = tuple(_upload(ps, dev) for ps in host_planes)
         return CachedChunk(table.name, start, stop - start, cap, False,
                            planes), up
 
@@ -246,15 +249,16 @@ class DeviceChunkCache:
                 dev: torch.device, pm=None) -> Iterator[CachedChunk]:
         for start in range(0, n, cap):
             self.streamed += 1
-            cc = self._load(table, names, start, min(start + cap, n), cap,
-                            dev, pm)[0]
+            with span("chunks", pm):
+                cc = self._load(table, names, start, min(start + cap, n),
+                                cap, dev, pm)[0]
             cc.streamed = True
             yield cc
 
     # -- auxiliary device state (join hash tables) ---------------------------
 
     def get_aux(self, key: tuple, pm=None) -> Any:
-        with self._mu:
+        with span("chunks", pm), self._mu:
             self._sweep()
             ent = self._lru.get(("aux",) + key)
             if ent is None:

@@ -283,7 +283,8 @@ class DistJoinAggExecutor:
             return cached
         host_args = build_host_args()
         # rows shard over every mesh axis jointly (flat or hosts x chips)
-        args = tuple(shard_host(a, mesh) for a in host_args)
+        with pm.timer("upload"):
+            args = tuple(shard_host(a, mesh) for a in host_args)
         pm.add_bytes("h2d", sum(a.nbytes for a in host_args))
         owner = (getattr(self, "probe", None) or self.table).name
         TCACHE.put_aux(key, args, owner, cols)
@@ -345,7 +346,9 @@ class DistJoinAggExecutor:
             be = bind_columns(e, {n: i for i, n in enumerate(names)})
             fn = build_project_fn([be], schema)
             dev = device()
-            planes = tuple(_upload(planes_of_column(c), dev) for c in cols)
+            with self.perfmon.timer("upload"):
+                planes = tuple(_upload(planes_of_column(c), dev)
+                               for c in cols)
             self.perfmon.add_bytes("h2d", sum(
                 p.nbytes for c in cols for p in planes_of_column(c)))
             outs, _mask, err = fetch_host(fn(planes, table.nrows))
@@ -394,29 +397,30 @@ class DistJoinAggExecutor:
         if not self.eligible():
             raise DistFallback("not eligible")
         pm = self.perfmon
-        ndev = mesh_size()
-        mesh = mesh_for_config(ndev)
+        with pm.timer("prepare"):
+            ndev = mesh_size()
+            mesh = mesh_for_config(ndev)
 
-        # signature
-        gspecs = []
-        gmeta = []                       # (type, dictionary|None) per gkey
-        for g in self.group_exprs:
-            side = self._expr_side(g)
-            tbl = self.probe if side == "probe" else self.build
-            gspecs.append(LaneSpec(side=side, t=g.type, role="gkey"))
-            gmeta.append((g.type,
-                          tbl.columns[g.name].dictionary
-                          if isinstance(g, ColumnRef) else None))
-        agg_sigs = []
-        for inst in self.aggs:
-            specs = tuple(
-                sp for a in inst.args
-                for sp in _arg_specs(self._expr_side(a), a.type))
-            agg_sigs.append((specs, tuple(inst.slots)))
-        sig = DistPlanSig(n_probe_jkeys=len(self.probe_keys),
-                          n_build_jkeys=len(self.build_keys),
-                          gkeys=tuple(gspecs), aggs=tuple(agg_sigs),
-                          ungrouped=not self.group_exprs)
+            # signature
+            gspecs = []
+            gmeta = []                       # (type, dictionary|None) per gkey
+            for g in self.group_exprs:
+                side = self._expr_side(g)
+                tbl = self.probe if side == "probe" else self.build
+                gspecs.append(LaneSpec(side=side, t=g.type, role="gkey"))
+                gmeta.append((g.type,
+                              tbl.columns[g.name].dictionary
+                              if isinstance(g, ColumnRef) else None))
+            agg_sigs = []
+            for inst in self.aggs:
+                specs = tuple(
+                    sp for a in inst.args
+                    for sp in _arg_specs(self._expr_side(a), a.type))
+                agg_sigs.append((specs, tuple(inst.slots)))
+            sig = DistPlanSig(n_probe_jkeys=len(self.probe_keys),
+                              n_build_jkeys=len(self.build_keys),
+                              gkeys=tuple(gspecs), aggs=tuple(agg_sigs),
+                              ungrouped=not self.group_exprs)
 
         # side filters through the single-chip scan tier
         with pm.timer("dist_prepare"):
@@ -677,25 +681,26 @@ class DistPreAggExecutor:
         if not self.eligible():
             raise DistFallback("not eligible")
         pm = self.perfmon
-        ndev = mesh_size()
-        mesh = mesh_for_config(ndev)
-        helper = DistJoinAggExecutor(self.table, self.table, [], [],
-                                     self.group_exprs, self.aggs,
-                                     probe_pred=self.pred, perfmon=pm)
+        with pm.timer("prepare"):
+            ndev = mesh_size()
+            mesh = mesh_for_config(ndev)
+            helper = DistJoinAggExecutor(self.table, self.table, [], [],
+                                         self.group_exprs, self.aggs,
+                                         probe_pred=self.pred, perfmon=pm)
 
-        gspecs, gmeta = [], []
-        for g in self.group_exprs:
-            gspecs.append(LaneSpec(side="probe", t=g.type, role="gkey"))
-            gmeta.append((g.type,
-                          self.table.columns[g.name].dictionary
-                          if isinstance(g, ColumnRef) else None))
-        agg_sigs = [(tuple(sp for a in inst.args
-                           for sp in _arg_specs("probe", a.type)),
-                     tuple(inst.slots))
-                    for inst in self.aggs]
-        sig = DistPlanSig(n_probe_jkeys=0, n_build_jkeys=0,
-                          gkeys=tuple(gspecs), aggs=tuple(agg_sigs),
-                          ungrouped=not self.group_exprs)
+            gspecs, gmeta = [], []
+            for g in self.group_exprs:
+                gspecs.append(LaneSpec(side="probe", t=g.type, role="gkey"))
+                gmeta.append((g.type,
+                              self.table.columns[g.name].dictionary
+                              if isinstance(g, ColumnRef) else None))
+            agg_sigs = [(tuple(sp for a in inst.args
+                               for sp in _arg_specs("probe", a.type)),
+                         tuple(inst.slots))
+                        for inst in self.aggs]
+            sig = DistPlanSig(n_probe_jkeys=0, n_build_jkeys=0,
+                              gkeys=tuple(gspecs), aggs=tuple(agg_sigs),
+                              ungrouped=not self.group_exprs)
 
         with pm.timer("dist_prepare"):
             ii = helper._filtered_rows(self.table, self.pred)

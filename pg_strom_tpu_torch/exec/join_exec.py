@@ -211,42 +211,44 @@ class HashJoinExecutor:
         Returns False when the build side itself can't go on device (the
         caller host-joins this partition)."""
         pm = self.perfmon
-        bl = self._bview.column_names
-        bcap = _next_pow2(max(self._bview.nrows, 16))
-        key_types = tuple(k.type for k in self.build_keys)
-        row_bits = max(self._bview.nrows, 1).bit_length()
-        ht = self._hash_table(bl, bcap, row_bits)
-        if ht is None:
-            return False
-        nbuckets = int(ht["bucket_start"].shape[0]) - 1
+        with pm.timer("prepare"):
+            bl = self._bview.column_names
+            bcap = _next_pow2(max(self._bview.nrows, 16))
+            key_types = tuple(k.type for k in self.build_keys)
+            row_bits = max(self._bview.nrows, 1).bit_length()
+            ht = self._hash_table(bl, bcap, row_bits)
+            if ht is None:
+                return False
+            nbuckets = int(ht["bucket_start"].shape[0]) - 1
 
-        pl = self.probe.column_names
-        pcap = tiered_capacity(chunk_capacity(self.probe.nrows), device(), pm)
-        pschema = schema_from_chunk_columns(pl, [self.probe.columns[n]
-                                                 for n in pl])
-        out_cap = max(2 * pcap, 1024)
-        max_chain = config.join_max_bucket_probe
+            pl = self.probe.column_names
+            pcap = tiered_capacity(chunk_capacity(self.probe.nrows),
+                                   device(), pm)
+            pschema = schema_from_chunk_columns(pl, [self.probe.columns[n]
+                                                     for n in pl])
+            out_cap = max(2 * pcap, 1024)
+            max_chain = config.join_max_bucket_probe
 
-        def get_probe_fn(cap_now):
-            return build_probe_fn(pschema, self.probe_keys, key_types,
-                                  nbuckets, max_chain, cap_now,
-                                  self.probe_pred)
+            def get_probe_fn(cap_now):
+                return build_probe_fn(pschema, self.probe_keys, key_types,
+                                      nbuckets, max_chain, cap_now,
+                                      self.probe_pred)
 
-        # single-int-key unique build => row-aligned dense probe (one
-        # lookup, no regrow): identity for a serial key, else K3 when the
-        # keys span its window, else a plain gather
-        use_dense = bool(ht["dense_ok"])
-        dense_fn = None
-        if use_dense:
-            use_ident = bool(ht["dense_ident"])
-            use_mxu = (not use_ident and config.join_mxu_lookup
-                       and bool(ht["dense_m_ok"]))
-            dcap_p = mxu_dense_window(bcap) if use_mxu \
-                else dense_cap_for(bcap)
-            dense_fn = build_probe_dense_fn(
-                pschema, self.probe_keys, dcap_p, self.probe_pred,
-                use_mxu=use_mxu, row_bits=row_bits, use_ident=use_ident)
-        chain_fn = None if use_dense else get_probe_fn(out_cap)
+            # single-int-key unique build => row-aligned dense probe (one
+            # lookup, no regrow): identity for a serial key, else K3 when
+            # the keys span its window, else a plain gather
+            use_dense = bool(ht["dense_ok"])
+            dense_fn = None
+            if use_dense:
+                use_ident = bool(ht["dense_ident"])
+                use_mxu = (not use_ident and config.join_mxu_lookup
+                           and bool(ht["dense_m_ok"]))
+                dcap_p = mxu_dense_window(bcap) if use_mxu \
+                    else dense_cap_for(bcap)
+                dense_fn = build_probe_dense_fn(
+                    pschema, self.probe_keys, dcap_p, self.probe_pred,
+                    use_mxu=use_mxu, row_bits=row_bits, use_ident=use_ident)
+            chain_fn = None if use_dense else get_probe_fn(out_cap)
 
         # launch every probe chunk, then read the results back in one
         # transfer per drain; regrows re-run individually (rare).  Streamed

@@ -100,6 +100,14 @@ class JoinPreAggExecutor:
     # -- run -------------------------------------------------------------------
 
     def run(self) -> list[tuple]:
+        with self.perfmon.timer("prepare"):
+            launch = self._prepare()
+        return launch()
+
+    def _prepare(self):
+        """Everything before the first launch: the joined layout, the
+        build side's hash table, the device function.  Returns the rest of
+        the run, a call that takes no arguments."""
         states: dict[tuple, list[dict]] = {}
         displays: dict[tuple, tuple] = {}
         pm = self.perfmon
@@ -144,7 +152,7 @@ class JoinPreAggExecutor:
         for c in TCACHE.chunks_for(self.build, bnames, bcap, pm):
             bcc = c
         if bcc is None or bcc.recheck_any:
-            return self._host_all(*host_args)
+            return lambda: self._host_all(*host_args)
         if ht is None:
             bschema = schema_from_chunk_columns(bnames, bcols_all)
             build_fn = build_hash_table(bschema, bkeys, bpred,
@@ -152,7 +160,7 @@ class JoinPreAggExecutor:
             with pm.timer("build_hash"):
                 ht = build_fn(bcc.planes, bcc.nrows)
             if int(ht["err"]) != 0:
-                return self._host_all(*host_args)
+                return lambda: self._host_all(*host_args)
             TCACHE.put_aux(ht_key, ht, self.build.name, bcols_all)
         nbuckets = int(ht["bucket_start"].shape[0]) - 1
         key_types = tuple(k.type for k in self.build_keys)
@@ -191,8 +199,8 @@ class JoinPreAggExecutor:
         if use_dense and use_mxu and bound_groups:
             pg = self._compose_pregroup(ht, ht_key, bnames, bpred, dcap, pm)
             if pg is not None:
-                return self._run_pregrouped(pg, ht, pnames, refd, pcap,
-                                            host_args)
+                return self._prepare_pregrouped(pg, ht, pnames, refd, pcap,
+                                                host_args)
 
         def fused(out_cap, strategy=self._strategy, G=None):
             return build_join_preagg_fn(
@@ -206,26 +214,30 @@ class JoinPreAggExecutor:
         # drain; retries re-run individually.  Streamed chunks drain every
         # max_async_chunks.
         fn0 = fused(out_cap0)
-        pending: list = []
-        streamed = 0
-        consume_args = (key_metas, bound_groups, bound_aggs, host_args)
-        for cc in TCACHE.chunks_for(self.probe, pnames, pcap, pm):
-            if cc.recheck_any:
-                with pm.timer("cpu_fallback"):
-                    self._host_chunk_agg(cc, *host_args)
-                continue
-            with pm.timer("dispatch"):
-                out = pm.device_call("tpujoinagg", fn0, ht, cc.planes,
-                                     bcc.planes, cc.nrows, 0)
-            pending.append((cc, out))
-            if cc.streamed:
-                streamed += 1
-                if streamed >= config.max_async_chunks:
-                    self._drain(pending, out_cap0, ht, bcc, fused,
-                                consume_args)
-                    streamed = 0
-        self._drain(pending, out_cap0, ht, bcc, fused, consume_args)
-        return finalize_agg_states(bound_groups, bound_aggs, states, displays)
+
+        def launch() -> list[tuple]:
+            pending: list = []
+            streamed = 0
+            consume_args = (key_metas, bound_groups, bound_aggs, host_args)
+            for cc in TCACHE.chunks_for(self.probe, pnames, pcap, pm):
+                if cc.recheck_any:
+                    with pm.timer("cpu_fallback"):
+                        self._host_chunk_agg(cc, *host_args)
+                    continue
+                with pm.timer("dispatch"):
+                    out = pm.device_call("tpujoinagg", fn0, ht, cc.planes,
+                                         bcc.planes, cc.nrows, 0)
+                pending.append((cc, out))
+                if cc.streamed:
+                    streamed += 1
+                    if streamed >= config.max_async_chunks:
+                        self._drain(pending, out_cap0, ht, bcc, fused,
+                                    consume_args)
+                        streamed = 0
+            self._drain(pending, out_cap0, ht, bcc, fused, consume_args)
+            return finalize_agg_states(bound_groups, bound_aggs, states,
+                                       displays)
+        return launch
 
     def _drain(self, pending, out_cap, ht, bcc, fused, consume_args) -> None:
         if not pending:
@@ -385,7 +397,8 @@ class JoinPreAggExecutor:
                        [self.build.columns[n] for n in bl])
         return pg
 
-    def _run_pregrouped(self, pg, ht, pnames, refd, pcap, host_args):
+    def _prepare_pregrouped(self, pg, ht, pnames, refd, pcap, host_args):
+        """The pregrouped path's device function; returns its run."""
         pm = self.perfmon
         states, displays, _, bound_groups, bound_aggs = host_args
         playout = {n: i for i, n in enumerate(pnames)}
@@ -440,38 +453,41 @@ class JoinPreAggExecutor:
                 consume(cc2, oh)
             pending.clear()
 
-        pending: list = []
-        streamed = 0
-        for cc in TCACHE.chunks_for(self.probe, pnames, pcap, pm):
-            if cc.recheck_any:
-                with pm.timer("cpu_fallback"):
-                    self._host_chunk_agg(cc, *host_args)
-                continue
-            with pm.timer("dispatch"):
-                out = pm.device_call("tpujoinagg_pregrouped", fn, ht2,
-                                     cc.planes, cc.nrows, 0)
-            pending.append((cc, out))
-            if cc.streamed:
-                streamed += 1
-                if streamed >= config.max_async_chunks:
-                    drain(pending)
-                    streamed = 0
-        if pending:
-            drain(pending)
+        def launch() -> list[tuple]:
+            pending: list = []
+            streamed = 0
+            for cc in TCACHE.chunks_for(self.probe, pnames, pcap, pm):
+                if cc.recheck_any:
+                    with pm.timer("cpu_fallback"):
+                        self._host_chunk_agg(cc, *host_args)
+                    continue
+                with pm.timer("dispatch"):
+                    out = pm.device_call("tpujoinagg_pregrouped", fn, ht2,
+                                         cc.planes, cc.nrows, 0)
+                pending.append((cc, out))
+                if cc.streamed:
+                    streamed += 1
+                    if streamed >= config.max_async_chunks:
+                        drain(pending)
+                        streamed = 0
+            if pending:
+                drain(pending)
 
-        # translate seg ids -> enumerated dimension key tuples, then merge
-        # with any host-replayed groups (keyed by the real values)
-        for ck_seg, st in seg_states.items():
-            seg = int(seg_disp[ck_seg][0])
-            kvals = pg["seg_displays"][seg]
-            ck = tuple(canon_group_key(v) for v in kvals)
-            if ck not in states:
-                states[ck] = st
-                displays[ck] = kvals
-            else:
-                states[ck] = [merge_partials(inst, a, b)
-                              for inst, a, b in zip(bound_aggs, states[ck], st)]
-        return finalize_agg_states(bound_groups, bound_aggs, states, displays)
+            # translate seg ids -> enumerated dimension key tuples, then merge
+            # with any host-replayed groups (keyed by the real values)
+            for ck_seg, st in seg_states.items():
+                seg = int(seg_disp[ck_seg][0])
+                kvals = pg["seg_displays"][seg]
+                ck = tuple(canon_group_key(v) for v in kvals)
+                if ck not in states:
+                    states[ck] = st
+                    displays[ck] = kvals
+                else:
+                    states[ck] = [merge_partials(inst, a, b) for inst, a, b
+                                  in zip(bound_aggs, states[ck], st)]
+            return finalize_agg_states(bound_groups, bound_aggs, states,
+                                       displays)
+        return launch
 
     def _key_metas(self) -> list[ColMeta | None]:
         metas = []

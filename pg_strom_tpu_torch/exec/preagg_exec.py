@@ -40,7 +40,7 @@ from ..ops.preagg_mxu import (mxu_keys_supported, mxu_dense_supported,
                               mxu_absorb)
 from .devcache import TCACHE, CachedChunk, chunk_capacity, device, fetch_host
 from .hostexec import replay_chunk_preagg, canon_group_key, new_state
-from ..utils.perfmon import Perfmon
+from ..utils.perfmon import Perfmon, spanned
 from ..utils.devprog import tiered_capacity
 
 # Cross-query group-count memo: (key column uids, group expr reprs) ->
@@ -154,6 +154,39 @@ class PreAggExecutor:
                     self._replay(chunk, states, displays)
             return states, displays
 
+        with pm.timer("prepare"):
+            key_metas, cap, fn = self._prepare()
+
+        # launch every chunk, then read the results back in one transfer;
+        # streamed (uncached) chunks drain every max_async_chunks to bound
+        # the device memory they hold
+        pending: list = []
+        streamed = 0
+        for cc in TCACHE.chunks_for(self.table, self.layout_names, cap, pm):
+            if cc.recheck_any:
+                with pm.timer("cpu_fallback"):
+                    self._replay(cc.host_chunk(self.table), states, displays)
+                continue
+            with pm.timer("dispatch"):
+                if self._v2 is not None:
+                    out = pm.device_call("tpupreagg", fn, cc.planes,
+                                         cc.nrows, 0, self._v2_scal())
+                else:
+                    out = pm.device_call("tpupreagg", fn, cc.planes,
+                                         cc.nrows, self._salt0)
+            pending.append((cc, out))
+            if cc.streamed:
+                streamed += 1
+                if streamed >= config.max_async_chunks:
+                    self._drain(pending, states, displays, key_metas)
+                    streamed = 0
+        self._drain(pending, states, displays, key_metas)
+        return states, displays
+
+    def _prepare(self):
+        """Everything before the first launch: strategy, G, the chunk
+        capacity and the device function; (key metas, capacity, fn)."""
+        pm = self.perfmon
         self._gskey = self._gstats_key()
         key_metas = self._key_metas()
         self._agg_dicts = agg_text_dicts(self.aggs, self.table.columns.get)
@@ -217,32 +250,7 @@ class PreAggExecutor:
                               pm=pm)
         self._cap = cap
         fn = self._fn(G, self._strategy)
-
-        # launch every chunk, then read the results back in one transfer;
-        # streamed (uncached) chunks drain every max_async_chunks to bound
-        # the device memory they hold
-        pending: list = []
-        streamed = 0
-        for cc in TCACHE.chunks_for(self.table, self.layout_names, cap, pm):
-            if cc.recheck_any:
-                with pm.timer("cpu_fallback"):
-                    self._replay(cc.host_chunk(self.table), states, displays)
-                continue
-            with pm.timer("dispatch"):
-                if self._v2 is not None:
-                    out = pm.device_call("tpupreagg", fn, cc.planes,
-                                         cc.nrows, 0, self._v2_scal())
-                else:
-                    out = pm.device_call("tpupreagg", fn, cc.planes,
-                                         cc.nrows, self._salt0)
-            pending.append((cc, out))
-            if cc.streamed:
-                streamed += 1
-                if streamed >= config.max_async_chunks:
-                    self._drain(pending, states, displays, key_metas)
-                    streamed = 0
-        self._drain(pending, states, displays, key_metas)
-        return states, displays
+        return key_metas, cap, fn
 
     def _drain(self, pending, states, displays, key_metas) -> None:
         if not pending:
@@ -450,6 +458,7 @@ def extract_with_dicts(aggs, agg_dicts):
     return ex
 
 
+@spanned("absorb")
 def absorb_preagg_out(out, group_exprs, aggs, key_metas, states, displays,
                       pm, agg_dicts: list | None = None,
                       whole_chunk: bool = True) -> None:
@@ -485,6 +494,7 @@ def absorb_preagg_out(out, group_exprs, aggs, key_metas, states, displays,
                           for inst, a, b in zip(aggs, st, parts)]
 
 
+@spanned("finalize")
 def finalize_agg_states(group_exprs, aggs, states, displays) -> list[tuple]:
     # ungrouped aggregate over zero rows still yields one all-NULL row
     if not group_exprs and not states:

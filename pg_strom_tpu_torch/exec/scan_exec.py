@@ -56,8 +56,10 @@ class ScanExecutor:
                     out.append(self._replay(chunk))
             return np.concatenate(out) if out else np.empty(0, np.int64)
         names = t.column_names
-        schema = schema_from_chunk_columns(names, [t.columns[n] for n in names])
-        fn = build_filter_mask_fn(self.pred, schema)
+        with pm.timer("prepare"):
+            schema = schema_from_chunk_columns(
+                names, [t.columns[n] for n in names])
+            fn = build_filter_mask_fn(self.pred, schema)
         # launch every chunk, read the masks back in one transfer per drain;
         # streamed chunks drain every max_async_chunks to bound the device
         # memory they hold

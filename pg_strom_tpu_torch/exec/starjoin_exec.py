@@ -140,6 +140,14 @@ class StarJoinAggExecutor:
     def run(self) -> list[tuple]:
         if not self.device_ok():
             raise StarFallback("shape not device-eligible")
+        with self.perfmon.timer("prepare"):
+            launch = self._prepare()
+        return launch()
+
+    def _prepare(self):
+        """Everything before the first launch: the joined layout, each
+        dimension's hash table, the probe specs.  Returns the rest of the
+        run, a call that takes no arguments."""
         pm = self.perfmon
         dev = device()
         states: dict[tuple, list[dict]] = {}
@@ -294,43 +302,48 @@ class StarJoinAggExecutor:
         hts_t = tuple(hts)
         pcap = tiered_capacity(chunk_capacity(self.probe.nrows), dev, pm)
 
-        # 3+-relation star over the device mesh: the fact shards
-        # data-parallel across the mesh, every dimension table and hash
-        # table REPLICATES (dims are small by the star shape), each shard
-        # runs the same fused star-join+agg function over its rows, and the
-        # host merges partials like chunks.  Any per-shard anomaly falls
-        # back to the single-device chunked flow below.
-        if config.distributed:
-            from ..parallel.mesh import mesh_size
-            if mesh_size() >= 2:
-                rows = self._run_distributed(
-                    pnames, pschema, ppred, jschema, probe_slots,
-                    build_slot_map, bound_groups, bound_aggs, hts_t,
-                    bplanes, states, displays, key_metas)
-                if rows is not None:
-                    return rows
+        def launch() -> list[tuple]:
+            # 3+-relation star over the device mesh: the fact shards
+            # data-parallel across the mesh, every dimension table and
+            # hash table REPLICATES (dims are small by the star shape),
+            # each shard runs the same fused star-join+agg function over
+            # its rows, and the host merges partials like chunks.  Any
+            # per-shard anomaly falls back to the single-device chunked
+            # flow below.
+            if config.distributed:
+                from ..parallel.mesh import mesh_size
+                if mesh_size() >= 2:
+                    rows = self._run_distributed(
+                        pnames, pschema, ppred, jschema, probe_slots,
+                        build_slot_map, bound_groups, bound_aggs, hts_t,
+                        bplanes, states, displays, key_metas)
+                    if rows is not None:
+                        return rows
 
-        consume_args = (states, displays, key_metas, jnames, jlayout,
-                        bound_groups, bound_aggs, hts_t, bplanes, fused)
-        pending: list = []
-        streamed = 0
-        for cc in TCACHE.chunks_for(self.probe, pnames, pcap, pm):
-            if cc.recheck_any:
-                with pm.timer("cpu_fallback"):
-                    self._host_chunk_agg(cc, states, displays, jnames,
-                                         jlayout, bound_groups, bound_aggs)
-                continue
-            with pm.timer("dispatch"):
-                out = pm.device_call("tpustarjoinagg", fused(), hts_t,
-                                     cc.planes, bplanes, cc.nrows, 0)
-            pending.append((cc, out))
-            if cc.streamed:
-                streamed += 1
-                if streamed >= config.max_async_chunks:
-                    self._drain(pending, consume_args)
-                    streamed = 0
-        self._drain(pending, consume_args)
-        return finalize_agg_states(bound_groups, bound_aggs, states, displays)
+            consume_args = (states, displays, key_metas, jnames, jlayout,
+                            bound_groups, bound_aggs, hts_t, bplanes, fused)
+            pending: list = []
+            streamed = 0
+            for cc in TCACHE.chunks_for(self.probe, pnames, pcap, pm):
+                if cc.recheck_any:
+                    with pm.timer("cpu_fallback"):
+                        self._host_chunk_agg(cc, states, displays,
+                                             jnames, jlayout, bound_groups,
+                                             bound_aggs)
+                    continue
+                with pm.timer("dispatch"):
+                    out = pm.device_call("tpustarjoinagg", fused(), hts_t,
+                                         cc.planes, bplanes, cc.nrows, 0)
+                pending.append((cc, out))
+                if cc.streamed:
+                    streamed += 1
+                    if streamed >= config.max_async_chunks:
+                        self._drain(pending, consume_args)
+                        streamed = 0
+            self._drain(pending, consume_args)
+            return finalize_agg_states(bound_groups, bound_aggs, states,
+                                       displays)
+        return launch
 
     def _drain(self, pending, consume_args) -> None:
         if not pending:
@@ -374,9 +387,10 @@ class StarJoinAggExecutor:
             pm.bump("dist_resident_hits")
         else:
             hc = Chunk.from_table(self.probe, 0, n, Npad)
-            per_col = [[shard_host(p, mesh)
-                        for p in planes_of_column(hc.columns[nm])]
-                       for nm in pnames]
+            with pm.timer("upload"):
+                per_col = [[shard_host(p, mesh)
+                            for p in planes_of_column(hc.columns[nm])]
+                           for nm in pnames]
             shard_planes = [tuple(tuple(pl[s] for pl in col)
                                   for col in per_col)
                             for s in range(ndev)]

@@ -18,6 +18,7 @@ import torch
 
 from ..expr.ir import Expr
 from ..expr.lower_torch import Lowerer, ColMeta, _live, pred_mask, err_max
+from ..utils.perfmon import spanned
 
 
 def compact_mask(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -52,6 +53,7 @@ def bitpack_mask(mask: torch.Tensor) -> torch.Tensor:
     return (m * w).sum(dim=1).to(torch.uint8).reshape(-1)
 
 
+@spanned("unpack_mask")
 def unpack_maskbits(maskbits: np.ndarray, nrows: int) -> np.ndarray:
     """Host decoder for bitpack_mask's tiled order -> bool[nrows]."""
     b = np.asarray(maskbits).reshape(-1, 1, 128)
@@ -59,6 +61,7 @@ def unpack_maskbits(maskbits: np.ndarray, nrows: int) -> np.ndarray:
     return bits.reshape(-1)[:nrows].astype(bool)
 
 
+@spanned("lower")
 def _qual_mask(pred: Optional[Expr], schema, cols: tuple, nrows):
     live = _live(cols, nrows)
     lw = Lowerer(schema, cols, live)

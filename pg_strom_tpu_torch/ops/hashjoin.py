@@ -38,6 +38,7 @@ from .hashing import hash_column32, combine_hashes32
 from .sort import argsort_i32
 from .mxu_lookup import MAX_D as MXU_MAX_D, _HPAD as _MXU_HPAD_MIN, LANE, \
     encode_table_torch, lookup_digits, mxu_lookup
+from ..utils.perfmon import span
 
 
 def _next_pow2(n: int) -> int:
@@ -208,10 +209,11 @@ def build_probe_dense_fn(schema: Sequence[ColMeta], key_exprs: Sequence[Expr],
 
     def f(ht: dict, cols: tuple, nrows):
         n = cols[0][0].shape[0] if cols else 0
-        live = _live(cols, nrows)
-        lw = Lowerer(schema, cols, live)
-        mask = pred_mask(lw, pred, live)
-        k = lw.lower(key_exprs[0], mask)
+        with span("lower"):
+            live = _live(cols, nrows)
+            lw = Lowerer(schema, cols, live)
+            mask = pred_mask(lw, pred, live)
+            k = lw.lower(key_exprs[0], mask)
         off = k.data.to(torch.int64) - ht["kmin"]
         in_r = mask & k.valid & (off >= 0) & (off < dense_cap)
         slot = off.clamp(0, dense_cap - 1).to(torch.int32)
@@ -288,10 +290,12 @@ def build_probe_multi_fn(schema: Sequence[ColMeta],
 
     def f(ht: dict, cols: tuple, nrows):
         n = cols[0][0].shape[0] if cols else 0
-        live = _live(cols, nrows)
-        lw = Lowerer(schema, cols, live)
-        mask = pred_mask(lw, pred, live)
-        keys, allvalid, start, blen = _probe_keys(lw, key_exprs, mask, ht)
+        with span("lower"):
+            live = _live(cols, nrows)
+            lw = Lowerer(schema, cols, live)
+            mask = pred_mask(lw, pred, live)
+            keys, allvalid, start, blen = _probe_keys(lw, key_exprs, mask,
+                                                      ht)
         too_long = (blen > max_chain).any()
         err = err_max(lw, live)
         bs_max = ht["order"].shape[0]
@@ -328,9 +332,11 @@ def build_probe_fn(schema: Sequence[ColMeta], key_exprs: Sequence[Expr],
         n = cols[0][0].shape[0] if cols else 0
         live = _live(cols, nrows)
         dev = live.device
-        lw = Lowerer(schema, cols, live)
-        mask = pred_mask(lw, pred, live)
-        keys, allvalid, start, blen = _probe_keys(lw, key_exprs, mask, ht)
+        with span("lower"):
+            lw = Lowerer(schema, cols, live)
+            mask = pred_mask(lw, pred, live)
+            keys, allvalid, start, blen = _probe_keys(lw, key_exprs, mask,
+                                                      ht)
         # chains longer than the bounded scan: defer chunk to host
         too_long = (blen > max_chain).any()
         err = torch.maximum(err_max(lw, live), torch.where(

@@ -25,6 +25,7 @@ from ..expr.lower_torch import ColMeta, Lowerer, _live, pred_mask, err_max
 from .hashjoin import build_probe_fn, build_probe_dense_fn
 from .mxu_lookup import mxu_lookup
 from .preagg import AggInstance, build_preagg_fn
+from ..utils.perfmon import span
 
 
 def build_join_preagg_fn(pschema: Sequence[ColMeta],
@@ -69,17 +70,20 @@ def build_join_preagg_fn(pschema: Sequence[ColMeta],
                                  match_pred, G, strategy)
 
         def f_dense(ht: dict, pcols: tuple, bcols: tuple, nrows, salt):
-            matched, build_row, nout, jerr = dprobe_fn(ht, pcols, nrows)
-            br = build_row.to(torch.int64)
-            jcols = []
-            for jslot in range(len(jschema)):
-                if probe_slots[jslot] >= 0:
-                    g = list(pcols[probe_slots[jslot]])
-                else:
-                    g = [p[br] for p in bcols[build_map[jslot]]]
-                g[1] = g[1] & matched
-                jcols.append(tuple(g))
-            jcols.append((matched, torch.ones_like(matched)))  # __match__
+            with span("probe"):
+                matched, build_row, nout, jerr = dprobe_fn(ht, pcols, nrows)
+            with span("gather"):
+                br = build_row.to(torch.int64)
+                jcols = []
+                for jslot in range(len(jschema)):
+                    if probe_slots[jslot] >= 0:
+                        g = list(pcols[probe_slots[jslot]])
+                    else:
+                        g = [p[br] for p in bcols[build_map[jslot]]]
+                    g[1] = g[1] & matched
+                    jcols.append(tuple(g))
+                # the __match__ lane
+                jcols.append((matched, torch.ones_like(matched)))
             out = pre_fn(tuple(jcols), nrows, salt)
             out["err"] = torch.maximum(out["err"], jerr)
             out["nout"] = torch.tensor(0, dtype=torch.int32)  # row-aligned
@@ -96,25 +100,28 @@ def build_join_preagg_fn(pschema: Sequence[ColMeta],
                              G, strategy)
 
     def f(ht: dict, pcols: tuple, bcols: tuple, nrows, salt):
-        probe_idx, build_row, nout, jerr = probe_fn(ht, pcols, nrows)
-        n = pcols[0][0].shape[0] if pcols else 0
-        bs_max = bcols[0][0].shape[0] if bcols else 0
-        nlive = int(torch.clamp(nout, max=out_cap))
-        dev = probe_idx.device
-        live_out = torch.arange(out_cap, dtype=torch.int32, device=dev) < nlive
-        pi = probe_idx.to(torch.int64).clamp(0, max(n - 1, 0))
-        br = build_row.to(torch.int64).clamp(0, max(bs_max - 1, 0))
-        jcols = []
-        for jslot in range(len(jschema)):
-            if probe_slots[jslot] >= 0:
-                planes, idx = pcols[probe_slots[jslot]], pi
-            else:
-                planes, idx = bcols[build_map[jslot]], br
-            g = [p[idx] for p in planes]
-            g[1] = g[1] & live_out          # validity plane
-            jcols.append(tuple(g))
-        if not jcols:                        # synthetic row-mask lane
-            jcols.append((live_out, live_out))
+        with span("probe"):
+            probe_idx, build_row, nout, jerr = probe_fn(ht, pcols, nrows)
+        with span("gather"):
+            n = pcols[0][0].shape[0] if pcols else 0
+            bs_max = bcols[0][0].shape[0] if bcols else 0
+            nlive = int(torch.clamp(nout, max=out_cap))
+            dev = probe_idx.device
+            live_out = (torch.arange(out_cap, dtype=torch.int32, device=dev)
+                        < nlive)
+            pi = probe_idx.to(torch.int64).clamp(0, max(n - 1, 0))
+            br = build_row.to(torch.int64).clamp(0, max(bs_max - 1, 0))
+            jcols = []
+            for jslot in range(len(jschema)):
+                if probe_slots[jslot] >= 0:
+                    planes, idx = pcols[probe_slots[jslot]], pi
+                else:
+                    planes, idx = bcols[build_map[jslot]], br
+                g = [p[idx] for p in planes]
+                g[1] = g[1] & live_out          # validity plane
+                jcols.append(tuple(g))
+            if not jcols:                        # synthetic row-mask lane
+                jcols.append((live_out, live_out))
         out = pre_fn(tuple(jcols), nlive, salt)
         out["err"] = torch.maximum(out["err"], jerr)
         out["nout"] = nout
@@ -154,16 +161,19 @@ def build_join_preagg_pregrouped_fn(
 
     def f(ht: dict, pcols: tuple, nrows, salt):
         n = pcols[0][0].shape[0] if pcols else 0
-        live = _live(pcols, nrows)
-        lw = Lowerer(pschema, pcols, live)
-        mask = pred_mask(lw, probe_pred, live)
-        k = lw.lower(probe_keys[0], mask)
-        off = k.data.to(torch.int64) - ht["kmin"]
-        in_r = mask & k.valid & (off >= 0) & (off < dense_cap)
-        slot = off.clamp(0, dense_cap - 1).to(torch.int32)
-        seg = mxu_lookup(slot, ht["seg_M"], dense_cap, seg_K, n, sentinel=G)
-        matched = in_r & (seg < G)
-        seg = torch.where(matched, seg, torch.zeros_like(seg))
+        with span("probe"):
+            with span("lower"):
+                live = _live(pcols, nrows)
+                lw = Lowerer(pschema, pcols, live)
+                mask = pred_mask(lw, probe_pred, live)
+                k = lw.lower(probe_keys[0], mask)
+            off = k.data.to(torch.int64) - ht["kmin"]
+            in_r = mask & k.valid & (off >= 0) & (off < dense_cap)
+            slot = off.clamp(0, dense_cap - 1).to(torch.int32)
+            seg = mxu_lookup(slot, ht["seg_M"], dense_cap, seg_K, n,
+                             sentinel=G)
+            matched = in_r & (seg < G)
+            seg = torch.where(matched, seg, torch.zeros_like(seg))
         jcols = []
         for jslot in range(len(jschema)):
             g = list(pcols[probe_slots[jslot]])

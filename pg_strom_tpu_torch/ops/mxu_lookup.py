@@ -32,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.perfmon import span
+
 LANE = 128
 MAX_D = 1 << 16
 _HPAD = 16
@@ -123,7 +125,7 @@ def mxu_lookup_cuda(idx: torch.Tensor, table: torch.Tensor, n: int,
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = max(1, min(-(-n // _BLOCK), sms * _BLOCKS_PER_SM))
     lib = library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("K3"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pgstrom_k3_launch(
             ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(table.data_ptr()),

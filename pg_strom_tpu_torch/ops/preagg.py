@@ -38,6 +38,7 @@ from ..expr.lower_torch import (ColMeta, DVal, Lowerer, INT64_MIN,
 from .hashing import (hash_column32, combine_hashes32, canonical_f64_bits,
                       _mix32, M32)
 from .preagg_mxu import f64_out_of_domain
+from ..utils.perfmon import span
 
 # ---------------------------------------------------------------------------
 # aggregate definitions: (aggname, family) -> slots + finalizer + rettype
@@ -602,32 +603,38 @@ def build_preagg_fn(schema: Sequence[ColMeta], group_exprs: Sequence[Expr],
         return build_fused2_fn(schema, group_exprs, aggs, pred, G, v2sig)
 
     def f(cols: tuple, nrows, salt=0):
-        n = cols[0][0].shape[0] if cols else 0
-        dev = cols[0][0].device if cols else torch.device("cpu")
-        live = torch.arange(n, dtype=torch.int32, device=dev) < int(nrows)
-        lw = Lowerer(schema, cols, live)
+        with span("lower"):
+            n = cols[0][0].shape[0] if cols else 0
+            dev = cols[0][0].device if cols else torch.device("cpu")
+            live = torch.arange(n, dtype=torch.int32, device=dev) < int(nrows)
+            lw = Lowerer(schema, cols, live)
 
-        mask = live
-        if pred is not None:
-            pv = lw.lower(pred, live)
-            mask = live & pv.valid & pv.data.to(torch.bool)
+            mask = live
+            if pred is not None:
+                pv = lw.lower(pred, live)
+                mask = live & pv.valid & pv.data.to(torch.bool)
 
-        keys = [lw.lower(g, mask) for g in group_exprs]
+            keys = [lw.lower(g, mask) for g in group_exprs]
 
-        # numeric DVals need a display-scale lane; plain column refs carry it
-        # from the store, computed numeric expressions default to 0
-        def _attach_dscale(v: DVal):
-            if v.t is T.NUMERIC and v.dscale_lane is None:
-                v.dscale_lane = torch.zeros(n, dtype=torch.int32, device=dev)
-            return v
+            # numeric DVals need a display-scale lane; plain column refs
+            # carry it from the store, computed numeric expressions default
+            # to 0
+            def _attach_dscale(v: DVal):
+                if v.t is T.NUMERIC and v.dscale_lane is None:
+                    v.dscale_lane = torch.zeros(n, dtype=torch.int32,
+                                                device=dev)
+                return v
 
-        for k in keys:
-            _attach_dscale(k)
-        arg_vals: list[list[DVal]] = []
-        for inst in aggs:
-            arg_vals.append([_attach_dscale(lw.lower(aexp, mask))
-                             for aexp in inst.args])
+            for k in keys:
+                _attach_dscale(k)
+            arg_vals: list[list[DVal]] = []
+            for inst in aggs:
+                arg_vals.append([_attach_dscale(lw.lower(aexp, mask))
+                                 for aexp in inst.args])
+        with span("reduce"):
+            return reduce_chunk(n, dev, lw, mask, keys, arg_vals, salt)
 
+    def reduce_chunk(n, dev, lw, mask, keys, arg_vals, salt):
         def err_out():
             return lw.err.max() if n else torch.tensor(0, dtype=torch.uint8)
 

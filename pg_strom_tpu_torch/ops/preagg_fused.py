@@ -42,6 +42,7 @@ from .preagg_mxu import (F4_LIMBS, _kind_mxu_ok, _f4_scale_exp,
                          _f64_quantity, _f64_blocks_enabled, f64_head_tail,
                          mxu_recipes, shadow_cell,
                          mxu_shadow_cols, _KEY_WIDE_TYPES, _F64_KINDS)
+from ..utils.perfmon import span
 
 MAX_G = 1 << 11
 LANES = 128                    # widest plan (physical columns)
@@ -378,7 +379,7 @@ def fused_cuda(plan: _Plan, seg: torch.Tensor, inputs, scales, G: int,
     ints = torch.zeros((G, K), dtype=torch.int64, device=dev)
     shadow = torch.zeros((G, K), dtype=torch.float32, device=dev)
     lib = library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("K2"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pgstrom_k2_launch(
             ctypes.c_void_p(desc.data_ptr()), len(desc_np), len(inputs),

@@ -58,6 +58,7 @@ import torch
 from ..sqltypes import T
 from ..expr.ir import Expr, ColumnRef, Const, FuncExpr, BoolExpr, NullTest
 from .preagg_mxu import _SlotRecipe, F4_LIMBS, shadow_cell
+from ..utils.perfmon import span
 
 LANES = 128
 F4_WINDOW_BITS = 72   # == preagg_mxu.F4_WINDOW (host divides by 2^72)
@@ -983,7 +984,7 @@ def fused2_cuda(sig: V2Sig, planes: Sequence[torch.Tensor], nrows: int,
     lp = plan_launch(G, K, int(_shadow_cols(prog).shape[0]),
                      8 * len(planes) + 4 * (len(desc_np) - 2 * len(planes)))
     geo = (ctypes.c_int * len(lp.geo()))(*lp.geo())
-    with torch.cuda.device(dev):        # launch on the planes' device
+    with torch.cuda.device(dev), span("K1"):   # on the planes' device
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pgstrom_k1_launch(
             ctypes.c_void_p(desc.data_ptr()), len(desc_np), len(planes),
@@ -1028,12 +1029,14 @@ def build_fused2_fn(schema, group_exprs, aggs, pred, G: int, sig: V2Sig):
     def f(cols, nrows, salt, scal):
         planes = _kernel_planes(sig, cols)
         dev = planes[0].device
-        if dev.type == "cuda":
-            ints, shadow = fused2_cuda(sig, planes, nrows, scal, G, pred)
-        elif dev.type == "cpu":
-            ints, shadow = fused2_reference(sig, planes, nrows, scal, G, pred)
-        else:
-            raise RuntimeError(f"K1 has no kernel for device {dev}")
+        with span("reduce"):
+            if dev.type == "cuda":
+                ints, shadow = fused2_cuda(sig, planes, nrows, scal, G, pred)
+            elif dev.type == "cpu":
+                ints, shadow = fused2_reference(sig, planes, nrows, scal, G,
+                                                pred)
+            else:
+                raise RuntimeError(f"K1 has no kernel for device {dev}")
         sums = torch.zeros((G, sig.S), dtype=torch.int64, device=dev)
         for m, pairs in by_mult.items():
             rcs = torch.tensor([p[0] for p in pairs], device=dev)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..sqltypes import T
+from ..utils.perfmon import spanned
 
 # rows per reduction block of the plain mxu_reduce (the reference's
 # per-segment f32 exactness bound; here it bounds the int64 copy of V)
@@ -668,6 +669,7 @@ def mxu_dense_groups(out, key_type: T, meta):
     return groups
 
 
+@spanned("absorb")
 def mxu_absorb(out_host, group_exprs, aggs, key_metas, states, displays,
                merge_partials, extract_partials, canon_group_key,
                dense_key: bool = False, recipes=None):

@@ -40,6 +40,7 @@ import torch
 
 from .launch_plan import _a16, plan_launch, widest_tile
 from .preagg_mxu import sat_int64
+from ..utils.perfmon import span
 
 MAX_G = 1 << 11
 _REF_ROWS = 1 << 20          # rows per block of the plain version
@@ -157,7 +158,7 @@ def pallas_cuda(V: torch.Tensor, seg_id: torch.Tensor, G: int, n: int,
     ints = torch.zeros((G, S), dtype=torch.int64, device=dev)
     shadow = torch.zeros((G, S), dtype=torch.float32, device=dev)
     lib = library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("K4"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pgstrom_k4_launch(
             ctypes.c_void_p(V.data_ptr()), ctypes.c_void_p(seg_id.data_ptr()),

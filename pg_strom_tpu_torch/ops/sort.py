@@ -44,7 +44,7 @@ from ..sqltypes import T
 from ..expr.ir import Expr
 from ..expr.lower_torch import (Lowerer, DVal, ColMeta, _f64_orderkey,
                                 f64_bits, _live, pred_mask, err_max)
-from ..utils.perfmon import bump_active
+from ..utils.perfmon import bump_active, span
 
 _SIGN = -(1 << 63)              # the uint64 top bit as an int64 pattern
 
@@ -369,17 +369,18 @@ def build_sort_topk_fn(schema: Sequence[ColMeta], specs: Sequence[SortSpec],
 
     def f(cols: tuple, nrows):
         n = cols[0][0].shape[0] if cols else 0
-        live = _live(cols, nrows)
-        dev = live.device
-        lw = Lowerer(schema, cols, live)
-        qual = pred_mask(lw, pred, live)
-        lanes: list[tuple[torch.Tensor, int]] = [
-            ((~qual).to(torch.int64), 1)]       # non-matches last
-        for sp in specs:
-            v = lw.lower(sp.expr, qual)
-            lanes.extend(_key_lanes(v, sp))
-        nqual = qual.to(torch.int64).sum()
-        err = err_max(lw, live)
+        with span("lower"):
+            live = _live(cols, nrows)
+            dev = live.device
+            lw = Lowerer(schema, cols, live)
+            qual = pred_mask(lw, pred, live)
+            lanes: list[tuple[torch.Tensor, int]] = [
+                ((~qual).to(torch.int64), 1)]       # non-matches last
+            for sp in specs:
+                v = lw.lower(sp.expr, qual)
+                lanes.extend(_key_lanes(v, sp))
+            nqual = qual.to(torch.int64).sum()
+            err = err_max(lw, live)
         no_ovf = torch.zeros((), dtype=torch.bool, device=dev)
         kk = min(k, n) if n else 0
         if kk == 0:
@@ -475,16 +476,17 @@ def build_sort_fn(schema: Sequence[ColMeta], specs: Sequence[SortSpec],
 
     def f(cols: tuple, nrows):
         n = cols[0][0].shape[0] if cols else 0
-        live = _live(cols, nrows)
-        lw = Lowerer(schema, cols, live)
-        lanes: list[tuple[torch.Tensor, int]] = [
-            ((~live).to(torch.int64), 1)]           # dead rows last
-        fs = []
-        for sp in specs:
-            v = lw.lower(sp.expr, live)
-            lanes.extend(_key_lanes(v, sp))
-            fs.append(_full_specs(v, sp))
-        err = err_max(lw, live)
+        with span("lower"):
+            live = _live(cols, nrows)
+            lw = Lowerer(schema, cols, live)
+            lanes: list[tuple[torch.Tensor, int]] = [
+                ((~live).to(torch.int64), 1)]           # dead rows last
+            fs = []
+            for sp in specs:
+                v = lw.lower(sp.expr, live)
+                lanes.extend(_key_lanes(v, sp))
+                fs.append(_full_specs(v, sp))
+            err = err_max(lw, live)
         if tier == 1:
             perm, fits = _argsort_adaptive(lanes[0][0], fs, n)
         elif tier == 2:

@@ -33,6 +33,7 @@ from ..sqltypes import T
 from ..expr.ir import Expr, ColumnRef
 from ..expr.lower_torch import ColMeta
 from .hashjoin import build_probe_dense_fn, build_probe_multi_fn
+from ..utils.perfmon import span
 from .preagg import AggInstance, build_preagg_fn
 
 
@@ -87,31 +88,32 @@ def build_star_join_preagg_fn(pschema: Sequence[ColMeta],
         jerr = torch.tensor(0, dtype=torch.uint8, device=dev)
         ovf = torch.tensor(False, device=dev)
         dim_res = []
-        for (mode, src, dfn), ht in zip(dfns, hts):
-            if src == "probe":
-                cols_in = pcols
-            else:
-                # snowflake: probe with the PARENT dimension's columns
-                # gathered at its matched rows (row-aligned with the fact;
-                # values on parent-unmatched rows are killed by the AND
-                # over all dims' masks below).  The parent is dense, so
-                # its match is slice-independent.
-                pbr = dim_res[src][2].to(torch.int64)
-                cols_in = tuple(tuple(pl[pbr] for pl in colp)
-                                for colp in bcols_list[src])
-            if mode == "dense":
-                m, br, _, e = dfn(ht, cols_in, nrows)
-                if src != "probe":
-                    m = m & dim_res[src][1]
-                dim_res.append(("dense", m, br))
-            else:
-                brs, cnt, o, e = dfn(ht, cols_in, nrows)
-                if src != "probe":
-                    cnt = torch.where(dim_res[src][1], cnt,
-                                      torch.zeros_like(cnt))
-                dim_res.append(("multi", brs, cnt))
-                ovf = ovf | o
-            jerr = torch.maximum(jerr, e)
+        with span("probe"):
+            for (mode, src, dfn), ht in zip(dfns, hts):
+                if src == "probe":
+                    cols_in = pcols
+                else:
+                    # snowflake: probe with the PARENT dimension's columns
+                    # gathered at its matched rows (row-aligned with the fact;
+                    # values on parent-unmatched rows are killed by the AND
+                    # over all dims' masks below).  The parent is dense, so
+                    # its match is slice-independent.
+                    pbr = dim_res[src][2].to(torch.int64)
+                    cols_in = tuple(tuple(pl[pbr] for pl in colp)
+                                    for colp in bcols_list[src])
+                if mode == "dense":
+                    m, br, _, e = dfn(ht, cols_in, nrows)
+                    if src != "probe":
+                        m = m & dim_res[src][1]
+                    dim_res.append(("dense", m, br))
+                else:
+                    brs, cnt, o, e = dfn(ht, cols_in, nrows)
+                    if src != "probe":
+                        cnt = torch.where(dim_res[src][1], cnt,
+                                          torch.zeros_like(cnt))
+                    dim_res.append(("multi", brs, cnt))
+                    ovf = ovf | o
+                jerr = torch.maximum(jerr, e)
 
         outs = []
         for combo in itertools.product(*fan_ranges):
@@ -125,20 +127,21 @@ def build_star_join_preagg_fn(pschema: Sequence[ColMeta],
                     br = res[1][fx]
                 matched = m if matched is None else (matched & m)
                 brs_eff.append(br.to(torch.int64))
-            jcols = []
-            for jslot in range(len(jschema)):
-                if probe_slots[jslot] >= 0:
-                    g = list(pcols[probe_slots[jslot]])
-                else:
-                    di, bci = build_slot_map[jslot]
-                    bcol = bcols_list[di][bci]
-                    # a multi probe's "no match" row id is the table's
-                    # capacity: clamp the gather, the mask kills the row
-                    idx = brs_eff[di].clamp(0, bcol[0].shape[0] - 1)
-                    g = [p[idx] for p in bcol]
-                g[1] = g[1] & matched
-                jcols.append(tuple(g))
-            jcols.append((matched, torch.ones_like(matched)))  # __match__
+            with span("gather"):
+                jcols = []
+                for jslot in range(len(jschema)):
+                    if probe_slots[jslot] >= 0:
+                        g = list(pcols[probe_slots[jslot]])
+                    else:
+                        di, bci = build_slot_map[jslot]
+                        bcol = bcols_list[di][bci]
+                        # a multi probe's "no match" row id is the table's
+                        # capacity: clamp the gather, the mask kills the row
+                        idx = brs_eff[di].clamp(0, bcol[0].shape[0] - 1)
+                        g = [p[idx] for p in bcol]
+                    g[1] = g[1] & matched
+                    jcols.append(tuple(g))
+                jcols.append((matched, torch.ones_like(matched)))  # __match__
             out = pre_fn(tuple(jcols), nrows, salt)
             out["err"] = torch.maximum(out["err"], jerr)
             out["nout"] = torch.tensor(0, dtype=torch.int32)  # row-aligned

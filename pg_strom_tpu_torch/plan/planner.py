@@ -30,7 +30,7 @@ from ..expr.ir import (
 from ..expr.catalog import device_expression_supported
 from ..expr.eval_cpu import eval_expr_cpu
 from ..ops.preagg import AggInstance, lookup_agg
-from ..utils.perfmon import Perfmon, active as perfmon_active
+from ..utils.perfmon import Perfmon, active as perfmon_active, span
 from ..pgops import cmp_values
 from ..exec.join_exec import HashJoinExecutor
 from ..exec.scan_exec import ScanExecutor
@@ -155,7 +155,7 @@ class PlannedQuery:
     perfmon: Perfmon
 
     def execute(self) -> list[tuple]:
-        with perfmon_active(self.perfmon):
+        with perfmon_active(self.perfmon), self.perfmon.timer("execute"):
             return self._run()
 
     def explain(self, verbose: bool = False, costs: bool = False) -> str:
@@ -261,101 +261,114 @@ def plan_select(stmt: ast.SelectStmt, db: Database) -> PlannedQuery:
                 for nm, t in zip(obj.out_names, obj.out_types)})
         return obj
 
-    scope = Scope(rels=[(a, shell(a, o)) for a, o in rels], db=db)
+    with span("plan.bind"):
+        scope = Scope(rels=[(a, shell(a, o)) for a, o in rels], db=db)
 
-    # ---- bind WHERE / JOIN ON / targets -----------------------------------
-    where = bind_expr(stmt.where, scope, allow_aggs=False) if stmt.where else None
-    if where is not None and where.type is not T.BOOL:
-        raise BindError("argument of WHERE must be type boolean")
-    bound_ons: list[list[Expr]] = []
-    for jc in stmt.joins:
-        bound_ons.append(conjuncts(bind_expr(jc.on, scope, allow_aggs=False))
-                         if jc.on is not None else [])
-    has_outer = any(jc.jointype in ("left", "right", "full")
-                    for jc in stmt.joins)
-    # Outer joins: ON conditions gate MATCHING (a failed ON still emits the
-    # NULL-extended row), so they must stay attached to their join — and no
-    # WHERE qual may be pushed below a join whose output can NULL-extend it.
-    # The pooled-conjunct fast path below is inner-join-only.
-    on_conjs: list[Expr] = ([] if has_outer
-                            else [c for cs in bound_ons for c in cs])
+        # ---- bind WHERE / JOIN ON / targets -------------------------------
+        where = (bind_expr(stmt.where, scope, allow_aggs=False)
+                 if stmt.where else None)
+        if where is not None and where.type is not T.BOOL:
+            raise BindError("argument of WHERE must be type boolean")
+        bound_ons: list[list[Expr]] = []
+        for jc in stmt.joins:
+            bound_ons.append(
+                conjuncts(bind_expr(jc.on, scope, allow_aggs=False))
+                if jc.on is not None else [])
+        has_outer = any(jc.jointype in ("left", "right", "full")
+                        for jc in stmt.joins)
+        # Outer joins: ON conditions gate MATCHING (a failed ON still emits
+        # the NULL-extended row), so they must stay attached to their join —
+        # and no WHERE qual may be pushed below a join whose output can
+        # NULL-extend it.  The pooled-conjunct fast path below is
+        # inner-join-only.
+        on_conjs: list[Expr] = ([] if has_outer
+                                else [c for cs in bound_ons for c in cs])
 
-    group_exprs = [bind_expr(g, scope, allow_aggs=False) for g in stmt.group_by]
-    items: list[tuple[str, Expr]] = []
-    for it in stmt.items:
-        if isinstance(it.expr, ast.AStar):
-            for nm, t in scope.all_columns(getattr(it.expr, "rel", None)):
-                items.append((nm.split(".", 1)[1], ColumnRef(type=t, name=nm)))
-            continue
-        e = bind_expr(it.expr, scope, allow_aggs=True)
-        name = it.alias or _default_name(it.expr, e)
-        items.append((name, e))
-    having = bind_expr(stmt.having, scope, allow_aggs=True) if stmt.having else None
+        group_exprs = [bind_expr(g, scope, allow_aggs=False)
+                       for g in stmt.group_by]
+        items: list[tuple[str, Expr]] = []
+        for it in stmt.items:
+            if isinstance(it.expr, ast.AStar):
+                for nm, t in scope.all_columns(getattr(it.expr, "rel",
+                                                       None)):
+                    items.append((nm.split(".", 1)[1],
+                                  ColumnRef(type=t, name=nm)))
+                continue
+            e = bind_expr(it.expr, scope, allow_aggs=True)
+            name = it.alias or _default_name(it.expr, e)
+            items.append((name, e))
+        having = (bind_expr(stmt.having, scope, allow_aggs=True)
+                  if stmt.having else None)
 
-    has_aggs = (any(contains_agg(e) for _, e in items)
-                or bool(group_exprs)
-                or (having is not None and contains_agg(having)))
+        has_aggs = (any(contains_agg(e) for _, e in items)
+                    or bool(group_exprs)
+                    or (having is not None and contains_agg(having)))
 
-    # group by ordinal / alias
-    resolved_groups: list[Expr] = []
-    for g, ga in zip(group_exprs, stmt.group_by):
-        if isinstance(ga, ast.ALiteral) and isinstance(ga.value, int) \
-                and not ga.is_string:
-            resolved_groups.append(items[ga.value - 1][1])
-        else:
-            resolved_groups.append(g)
-    group_exprs = resolved_groups
-
-    # order by: may reference aliases or ordinals
-    order_specs: list[tuple[Expr, bool, Optional[bool]]] = []
-    alias_map = {nm: e for nm, e in items}
-    for oi in stmt.order_by:
-        if isinstance(oi.expr, ast.ALiteral) and isinstance(oi.expr.value, int) \
-                and not oi.expr.is_string:
-            oe = items[oi.expr.value - 1][1]
-        elif isinstance(oi.expr, ast.AName) and len(oi.expr.parts) == 1 \
-                and oi.expr.parts[0] in alias_map:
-            oe = alias_map[oi.expr.parts[0]]
-        else:
-            oe = bind_expr(oi.expr, scope, allow_aggs=has_aggs)
-        order_specs.append((oe, oi.descending, oi.nulls_first))
-
-    # ---- qual classification ----------------------------------------------
-    all_conjs = conjuncts(where) + on_conjs
-    per_rel: dict[str, list[Expr]] = {a: [] for a, _ in rels}
-    join_equis: list[Expr] = []
-    post_join: list[Expr] = []
-    if has_outer:
-        # correctness first: WHERE applies to the (NULL-extended) join
-        # result, so nothing is pushed below the chain
-        post_join = list(all_conjs)
-    else:
-        for cj in all_conjs:
-            rs = rels_of(cj)
-            if len(rs) <= 1:
-                if rs:
-                    per_rel[next(iter(rs))].append(cj)
-                else:
-                    post_join.append(cj)  # pseudo-constant qual
-            elif (len(rs) == 2 and isinstance(cj, FuncExpr)
-                  and cj.fname.startswith("=::")
-                  and isinstance(cj.args[0], ColumnRef)
-                  and isinstance(cj.args[1], ColumnRef)):
-                join_equis.append(cj)
+        # group by ordinal / alias
+        resolved_groups: list[Expr] = []
+        for g, ga in zip(group_exprs, stmt.group_by):
+            if isinstance(ga, ast.ALiteral) and isinstance(ga.value, int) \
+                    and not ga.is_string:
+                resolved_groups.append(items[ga.value - 1][1])
             else:
-                post_join.append(cj)
+                resolved_groups.append(g)
+        group_exprs = resolved_groups
+
+        # order by: may reference aliases or ordinals
+        order_specs: list[tuple[Expr, bool, Optional[bool]]] = []
+        alias_map = {nm: e for nm, e in items}
+        for oi in stmt.order_by:
+            if isinstance(oi.expr, ast.ALiteral) \
+                    and isinstance(oi.expr.value, int) \
+                    and not oi.expr.is_string:
+                oe = items[oi.expr.value - 1][1]
+            elif isinstance(oi.expr, ast.AName) and len(oi.expr.parts) == 1 \
+                    and oi.expr.parts[0] in alias_map:
+                oe = alias_map[oi.expr.parts[0]]
+            else:
+                oe = bind_expr(oi.expr, scope, allow_aggs=has_aggs)
+            order_specs.append((oe, oi.descending, oi.nulls_first))
+
+        # ---- qual classification ------------------------------------------
+        all_conjs = conjuncts(where) + on_conjs
+        per_rel: dict[str, list[Expr]] = {a: [] for a, _ in rels}
+        join_equis: list[Expr] = []
+        post_join: list[Expr] = []
+        if has_outer:
+            # correctness first: WHERE applies to the (NULL-extended) join
+            # result, so nothing is pushed below the chain
+            post_join = list(all_conjs)
+        else:
+            for cj in all_conjs:
+                rs = rels_of(cj)
+                if len(rs) <= 1:
+                    if rs:
+                        per_rel[next(iter(rs))].append(cj)
+                    else:
+                        post_join.append(cj)  # pseudo-constant qual
+                elif (len(rs) == 2 and isinstance(cj, FuncExpr)
+                      and cj.fname.startswith("=::")
+                      and isinstance(cj.args[0], ColumnRef)
+                      and isinstance(cj.args[1], ColumnRef)):
+                    join_equis.append(cj)
+                else:
+                    post_join.append(cj)
 
     # ---- cost-based offload decisions -------------------------------------
     shells = {a: shell(a, o) for a, o in rels}
     n_aggs = len(_collect_aggrefs(items, having))
     out_width = rel_width([e.type for _, e in items])
-    dec, node_costs = _plan_costs(
-        rels, shells, sub_plans, per_rel, join_equis, has_outer, bound_ons,
-        stmt.joins, has_aggs, group_exprs, n_aggs, out_width, post_join)
+    with span("plan.cost"):
+        dec, node_costs = _plan_costs(
+            rels, shells, sub_plans, per_rel, join_equis, has_outer,
+            bound_ons, stmt.joins, has_aggs, group_exprs, n_aggs, out_width,
+            post_join)
 
     # ---- execution closure -------------------------------------------------
     def run() -> list[tuple]:
-        tables = {a: rename_table(materialize_rel(a, o), a) for a, o in rels}
+        with span("prepare"):
+            tables = {a: rename_table(materialize_rel(a, o), a)
+                      for a, o in rels}
         # bulk-load pipeline: single equi-join feeding aggregation fuses into
         # one device pass per probe chunk (joined rows never materialize on
         # the host — the pgstrom_bulkslot chain analog, pg_strom.h:317-329)
@@ -473,9 +486,10 @@ def plan_select(stmt: ast.SelectStmt, db: Database) -> PlannedQuery:
         return rows
 
     # ---- EXPLAIN tree ------------------------------------------------------
-    root = _build_plan_tree(rels, per_rel, join_equis, post_join, has_aggs,
-                            group_exprs, items, order_specs, stmt, sub_plans,
-                            dec, node_costs)
+    with span("plan.tree"):
+        root = _build_plan_tree(rels, per_rel, join_equis, post_join,
+                                has_aggs, group_exprs, items, order_specs,
+                                stmt, sub_plans, dec, node_costs)
 
     out_names = [nm for nm, _ in items]
     out_types = [e.type for _, e in items]
@@ -1130,7 +1144,9 @@ def _topk_rows_dist(cur: Table, names, schema, specs, bpred, k: int,
                     pl.append(torch.from_numpy(blk).to(dev))
                 out.append(tuple(pl))
             return tuple(out)
-        shard_planes = [shard_of(s, d) for s, d in enumerate(mesh.devices)]
+        with perfmon.timer("upload"):
+            shard_planes = [shard_of(s, d)
+                            for s, d in enumerate(mesh.devices)]
         perfmon.add_bytes("h2d", ndev * shard_n * sum(
             p.dtype.itemsize * int(np.prod(p.shape[1:], dtype=np.int64))
             for c in cols for p in planes_of_column(c)))
@@ -1184,10 +1200,12 @@ def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
     if cur.nrows == 0:
         return []
 
-    names = cur.column_names
-    schema = schema_from_chunk_columns(names, [cur.columns[n] for n in names])
-    cap = tiered_capacity(chunk_capacity(cur.nrows), device(), perfmon)
-    specs = [SortSpec(oe, d, nf) for oe, d, nf in borders]
+    with perfmon.timer("prepare"):
+        names = cur.column_names
+        schema = schema_from_chunk_columns(
+            names, [cur.columns[n] for n in names])
+        cap = tiered_capacity(chunk_capacity(cur.nrows), device(), perfmon)
+        specs = [SortSpec(oe, d, nf) for oe, d, nf in borders]
     if config.distributed:
         from ..parallel.mesh import mesh_size
         if mesh_size() >= 2:
@@ -1199,7 +1217,8 @@ def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
                                    bitems, perfmon)
             if rows is not None:
                 return rows
-    fn = build_sort_topk_fn(schema, specs, bpred, min(k, cap))
+    with perfmon.timer("prepare"):
+        fn = build_sort_topk_fn(schema, specs, bpred, min(k, cap))
 
     pending = []
     streamed = 0
@@ -1616,14 +1635,15 @@ def _build_plan_tree(rels, per_rel, join_equis, post_join, has_aggs,
 
 def plan_query(stmt, db: Database) -> PlannedQuery:
     """Plan any query expression: SELECT or a set-op chain, with WITH
-    entries desugared first."""
-    if getattr(stmt, "ctes", None):
-        stmt = _expand_ctes(stmt)
-    if isinstance(stmt, ast.ARecursive):
-        return plan_recursive(stmt, db)
-    if isinstance(stmt, ast.SetOpStmt):
-        return plan_setop(stmt, db)
-    return plan_select(stmt, db)
+    entries desugared first (the span `plan`)."""
+    with span("plan"):
+        if getattr(stmt, "ctes", None):
+            stmt = _expand_ctes(stmt)
+        if isinstance(stmt, ast.ARecursive):
+            return plan_recursive(stmt, db)
+        if isinstance(stmt, ast.SetOpStmt):
+            return plan_setop(stmt, db)
+        return plan_select(stmt, db)
 
 
 def _expand_ctes(stmt, outer: dict | None = None):

@@ -15,6 +15,8 @@ import re
 from decimal import Decimal
 from typing import Any, Optional
 
+from ..utils.perfmon import span
+
 
 class ParseError(Exception):
     pass
@@ -1020,9 +1022,10 @@ class Parser:
 
 
 def parse(sql: str):
-    sql = sql.strip().rstrip(";")
-    p = Parser(sql)
-    stmt = p.parse_statement()
-    if p.peek().kind != "eof" and p.peek().value != ";":
-        raise ParseError(f"syntax error at or near {p.peek().value!r}")
-    return stmt
+    with span("parse"):
+        sql = sql.strip().rstrip(";")
+        p = Parser(sql)
+        stmt = p.parse_statement()
+        if p.peek().kind != "eof" and p.peek().value != ";":
+            raise ParseError(f"syntax error at or near {p.peek().value!r}")
+        return stmt

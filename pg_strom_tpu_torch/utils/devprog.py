@@ -10,19 +10,15 @@ tier to park on, so the chosen capacity always stands.
 
 from __future__ import annotations
 
-import time
-from ..config import config
+from .perfmon import span
 
 
 def tiered_capacity(cap: int, device, pm=None) -> int:
     """Chunk capacity for this query: `cap`.  On a CUDA device this first
     ensures the kernel library is built and loaded, charging the build to
-    the perfmon phase "kernel_build" instead of the first dispatch."""
+    the span "kernel_build" instead of the first dispatch."""
     if device.type == "cuda":
         from ..ops.cuda import library
-        t0 = time.perf_counter()
-        library()
-        if pm is not None and config.perfmon:
-            pm.times["kernel_build"] += time.perf_counter() - t0
-            pm.counts["kernel_build"] += 1
+        with span("kernel_build", pm):
+            library()
     return cap
