@@ -34,12 +34,30 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
 3c. K3 against its plain version: 2^20 lookups at D in {100, 2048, 40960,
    65536} and K in {1, 2, 4}, with the edge, padding and out-of-range
    indexes: bit-equal;
+3d. K5 against its plain version over K5_CASES (SSB Q1.1's four int4
+   columns joined to the dates of 1993; the same with an int4 overflow on
+   a joined row; NULLs, int2, float4 and bool columns with OR, NOT and IS
+   NULL; merged ranges over a nullable column and keys near both ends
+   of int4) at 1, 4099 and 2^26 rows: the output bit-equal, the err lane as
+   expected, each launch counted; then K5 and its plain version timed
+   with CUDA events on a 2^26-row chunk of Q1.1's columns beside its
+   bound (1.07 GB at 3.35 TB/s);
 4. the flagship slice: a port Database holding the flagship table (2^27
    rows: two 2^26-row chunks, int4 key in 0..29, float4 x with 5% NULL,
    int8 y in [0, 2^40) with 5% NULL), then
    SELECT key, sum(x), count(x), sum(y) FROM t WHERE x > 0.25 GROUP BY key
    through the planner: every chunk on K1, count and sum(y) exact against numpy int64, sum(x) to rel 1e-5; K1 launches
    counted over the cold and the five warm runs;
+4a. SSB Q1.1's shape through the planner: lineorder (2^27 rows: two
+   2^26-row chunks of lo_orderdate, lo_quantity, lo_discount and
+   lo_extendedprice, int4 with no NULL) joined to SSB's date dimension
+   (d_datekey yyyymmdd, 1992-1998) and to qty (q_key 1..40 in order):
+   Q1.1 (d_year = 1993) on K3's table, Q1.1 with join_mxu_lookup off on
+   the plain table, and a count and int4 sum over qty on the identity,
+   each cold and 3 warm: the membership table built from that variant,
+   every chunk on K5 (joinagg_scalar_chunks and K5's launches equal the
+   chunk count a run, nothing replayed), the answer exact against numpy
+   int64; K5's launches here are the kernels line's;
 4b. general grouped aggregation: t0 of models/testdb.py at 2^27 rows at
    the default cache budget (tcache_size_mb 0: 40% of the card's memory;
    the budget and t0's resident plane bytes logged, 53 B a row with two
@@ -890,6 +908,214 @@ def phase_kernels_k3(seed: int, log2n: int) -> int:
     return worst
 
 
+K5_CASES = ("q1_1", "mixed", "q1_1_overflow", "ranges_wide_key")
+K5_ROWS = (1, 4099, 1 << 26)
+K5_ERR = {"q1_1": 0, "mixed": 0, "q1_1_overflow": 4,   # ERR_INT4_OVERFLOW
+          "ranges_wide_key": 0}
+
+
+def _ssb_datekeys():
+    """SSB's date table: yyyymmdd keys of the 2556 days from 1992-01-01."""
+    import numpy as np
+    day = np.datetime64("1992-01-01") + np.arange(2556)
+    y = day.astype("datetime64[Y]").astype(np.int64) + 1970
+    m = day.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    d = (day - day.astype("datetime64[M]")).astype(np.int64) + 1
+    return (y * 10000 + m * 100 + d).astype(np.int32), y
+
+
+def _k5_case(name: str, rng, n: int, cap: int, dev):
+    """(program, planes, membership table) of one K5 case over `cap`-row
+    planes whose first n rows are live (the rows past n are drawn like
+    the rest, so counting one would show).
+
+    q1_1: SSB Q1.1 on lineorder's four int4 columns (orderdate over 7
+    years, discount 0..10, quantity 1..50, extendedprice up to 10.5M)
+    joined to the dates of 1993 (a 16384-slot window, as the executor
+    sizes it for the 2556-row date table): discount between 1 and 3 and
+    quantity < 25, sum(extendedprice * discount).  q1_1_overflow: row 0
+    joins and passes with extendedprice 2^30 (the product leaves int4).
+    mixed: NULLs in the key, an int2 and an int4 argument column, a
+    float4 predicate column with NaN and a bool column: (f > 0.5 or bl)
+    and not (a is null); count(*), sum(s * s2 + a), sum(a - 3),
+    count(a).  ranges_wide_key: keys up to 2^31 - 1 with kmin above
+    2^31 - dcap (the 64-bit offset test) and keys near -2^31, a nullable
+    range column: a between 10 and 500 and 7 = b and a <> 300 and
+    -5 < b; sum(a), sum(b)."""
+    import numpy as np
+    import torch
+    from pg_strom_tpu_torch.expr.ir import (BoolExpr, ColumnRef, Const,
+                                            FuncExpr, NullTest)
+    from pg_strom_tpu_torch.expr.lower_torch import ColMeta
+    from pg_strom_tpu_torch.ops import joinagg_scalar as js
+    from pg_strom_tpu_torch.ops.preagg import AggInstance
+    from pg_strom_tpu_torch.sqltypes import T
+
+    def col(t, name, i):
+        return ColumnRef(t, name, i)
+
+    def fn(name, t, *args):
+        return FuncExpr(t, name, tuple(args))
+
+    def dev_(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    if name in ("q1_1", "q1_1_overflow"):
+        keys, year = _ssb_datekeys()
+        od = keys[rng.integers(0, keys.shape[0], cap)]
+        disc = rng.integers(0, 11, cap).astype(np.int32)
+        qty = rng.integers(1, 51, cap).astype(np.int32)
+        ext = (qty * rng.integers(90000, 209901, cap)).astype(np.int32)
+        if name == "q1_1_overflow":
+            od[0], disc[0], qty[0], ext[0] = keys[year == 1993][5], 2, 10, \
+                1 << 30
+        schema = [ColMeta(c, T.INT4) for c in ("od", "disc", "qty", "ext")]
+        od_, disc_, qty_, ext_ = (col(T.INT4, c.name, i)
+                                  for i, c in enumerate(schema))
+        pred = BoolExpr(T.BOOL, "and", (
+            fn(">=::int4,int4", T.BOOL, disc_, Const(T.INT4, 1)),
+            fn("<=::int4,int4", T.BOOL, disc_, Const(T.INT4, 3)),
+            fn("<::int4,int4", T.BOOL, qty_, Const(T.INT4, 25))))
+        aggs = [AggInstance("sum", "i4", ("count", "sum_i"),
+                            (fn("*::int4,int4", T.INT4, ext_, disc_),))]
+        cols = [(od, None), (disc, None), (qty, None), (ext, None)]
+        build = keys[year == 1993]
+        kmin, dcap = int(build.min()), 16384
+    elif name == "ranges_wide_key":
+        kmin, dcap = (1 << 31) - 700, 1024
+        k = rng.integers(kmin - 300, 1 << 31, cap, dtype=np.int64)
+        k[rng.random(cap) < 0.1] = -(1 << 31)
+        k = k.astype(np.int32)
+        a = rng.integers(0, 600, cap).astype(np.int32)
+        b = rng.integers(0, 12, cap).astype(np.int32)
+        schema = [ColMeta("k", T.INT4), ColMeta("a", T.INT4),
+                  ColMeta("b", T.INT4)]
+        k_, a_, b_ = (col(T.INT4, c.name, i) for i, c in enumerate(schema))
+        pred = BoolExpr(T.BOOL, "and", (
+            fn(">=::int4,int4", T.BOOL, a_, Const(T.INT4, 10)),
+            fn("<=::int4,int4", T.BOOL, a_, Const(T.INT4, 500)),
+            fn("=::int4,int4", T.BOOL, Const(T.INT4, 7), b_),
+            fn("<>::int4,int4", T.BOOL, a_, Const(T.INT4, 300)),
+            fn("<::int4,int4", T.BOOL, Const(T.INT4, -5), b_)))
+        aggs = [AggInstance("sum", "i4", ("count", "sum_i"), (a_,)),
+                AggInstance("sum", "i4", ("count", "sum_i"), (b_,))]
+        cols = [(k, rng.random(cap) > 0.05), (a, rng.random(cap) > 0.1),
+                (b, None)]
+        build = kmin + np.flatnonzero(rng.random(700) < 0.6)
+    else:
+        k = rng.integers(0, 100, cap).astype(np.int32)
+        s = rng.integers(-150, 151, cap).astype(np.int16)
+        s2 = rng.integers(-200, 201, cap).astype(np.int16)
+        f = rng.random(cap).astype(np.float32)
+        f[rng.random(cap) < 0.05] = np.nan
+        bl = rng.random(cap) < 0.3
+        a = rng.integers(0, 1001, cap).astype(np.int32)
+        schema = [ColMeta("k", T.INT4), ColMeta("s", T.INT2),
+                  ColMeta("s2", T.INT2), ColMeta("f", T.FLOAT4),
+                  ColMeta("bl", T.BOOL), ColMeta("a", T.INT4)]
+        k_, s_, s2_, f_, bl_, a_ = (col(c.type, c.name, i)
+                                    for i, c in enumerate(schema))
+        pred = BoolExpr(T.BOOL, "and", (
+            BoolExpr(T.BOOL, "or", (
+                fn(">::float4,float4", T.BOOL, f_, Const(T.FLOAT4, 0.5)),
+                bl_)),
+            BoolExpr(T.BOOL, "not", (NullTest(T.BOOL, a_, True),))))
+        e1 = fn("+::int4,int4", T.INT4,
+                fn("cast::int4", T.INT4, fn("*::int2,int2", T.INT2, s_, s2_)),
+                a_)
+        aggs = [AggInstance("count", "star", ("nrows",), ()),
+                AggInstance("sum", "i4", ("count", "sum_i"), (e1,)),
+                AggInstance("sum", "i4", ("count", "sum_i"),
+                            (fn("-::int4,int4", T.INT4, a_,
+                                Const(T.INT4, 3)),)),
+                AggInstance("count", "i4", ("count",), (a_,))]
+        cols = [(k, rng.random(cap) > 0.05), (s, rng.random(cap) > 0.1),
+                (s2, None), (f, None), (bl, None),
+                (a, rng.random(cap) > 0.1)]
+        build = np.flatnonzero(rng.random(100) < 0.5).astype(np.int32)
+        kmin, dcap = 0, 1024
+    nullable = {i for i, (_, v) in enumerate(cols) if v is not None}
+    key = ColumnRef(schema[0].type, schema[0].name, 0)
+    prog = js.scalar_program(schema, [key], pred, aggs,
+                             list(range(len(schema))), nullable.__contains__)
+    if prog is None:
+        raise AssertionError(f"K5 case {name} is outside the kernel's "
+                             "envelope")
+    hit = np.zeros(dcap, bool)
+    hit[build - kmin] = True
+    member = js.member_from_mask(dev_(hit), kmin)
+    planes = [dev_(cols[i][0] if plane == "data" else cols[i][1])
+              for i, plane in prog.inputs]
+    return prog, planes, member
+
+
+def k5_compare(rng, name: str, n: int, cap: int, dev=None) -> int:
+    """K5 against its plain version on the card over one case: the output
+    (err, count(*), per argument count and sum) bit-equal, err as the case
+    expects, one launch counted; returns the max |kernel - plain|."""
+    import torch
+    from pg_strom_tpu_torch.ops import joinagg_scalar as js
+    prog, planes, member = _k5_case(name, rng, n, cap,
+                                    dev or torch.device("cuda"))
+    before = js.joinagg_scalar_cuda.launches
+    k = js.joinagg_scalar_cuda(prog, planes, member, n)
+    p = js.joinagg_scalar_reference(prog, planes, member, n)
+    torch.cuda.synchronize()
+    err = int((k - p).abs().max().item())
+    if not torch.equal(k, p):
+        raise AssertionError(f"K5 {name} n={n}: {k.tolist()} differs from "
+                             f"the plain version's {p.tolist()}")
+    if int(k[0]) != K5_ERR[name]:
+        raise AssertionError(f"K5 {name} n={n}: err lane {int(k[0])}, "
+                             f"expected {K5_ERR[name]}")
+    if js.joinagg_scalar_cuda.launches != before + 1:
+        raise AssertionError("K5's launch counter did not count the launch")
+    return err
+
+
+def phase_kernels_k5(seed: int, gpu: str) -> dict:
+    """K5 against its plain version over K5_CASES at 1, 4099 (in 8192-row
+    planes) and 2^26 rows, then timed on a 2^26-row chunk of Q1.1's four
+    int4 columns beside its bound and its plain version."""
+    import numpy as np
+    import torch
+    from pg_strom_tpu_torch.ops import joinagg_scalar as js
+    worst = 0
+    for i, name in enumerate(K5_CASES):
+        for n in K5_ROWS:
+            cap = 8192 if n == 4099 else n
+            worst = max(worst, k5_compare(
+                np.random.default_rng(seed * 1000 + 300 + i), name, n, cap))
+            _log(f"K5 case {name}: {n} rows of {cap} bit-equal to the plain "
+                 "version")
+    n = 1 << 26
+    prog, planes, member = _k5_case("q1_1", np.random.default_rng(seed), n,
+                                    n, torch.device("cuda"))
+    args = js.k5_args(prog, member)
+    out = js.joinagg_scalar_cuda(prog, planes, member, n, args)
+    launches0 = js.joinagg_scalar_cuda.launches
+    p1 = _time(lambda: js.joinagg_scalar_reference(prog, planes, member, n), 3)
+    k1 = _time(lambda: js.joinagg_scalar_cuda(prog, planes, member, n, args),
+               20)
+    k2 = _time(lambda: js.joinagg_scalar_cuda(prog, planes, member, n, args),
+               20)
+    p2 = _time(lambda: js.joinagg_scalar_reference(prog, planes, member, n), 3)
+    if not torch.equal(out, js.joinagg_scalar_reference(prog, planes,
+                                                        member, n)):
+        raise AssertionError("K5 at the Q1.1 chunk differs from its plain "
+                             "version")
+    b = _bound(_tensor_bytes(planes), n)
+    _log(f"K5 at the Q1.1 chunk ({n} rows, 4 int4 planes, "
+         f"{js.joinagg_scalar_cuda.launches - launches0} timed launches) "
+         f"[{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch {p1:.4f} / "
+         f"{p2:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+         f"{b['bound_bytes']:.0f} B at 3.35 TB/s; share "
+         f"{b['bound_ms'] / min(k1, k2):.3f}); rows {int(out[1])}, sum "
+         f"{int(out[3])}")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "err": worst, **b,
+            "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
@@ -999,6 +1225,149 @@ def phase_slice(seed: int, log2n: int, gpu: str) -> dict:
     # the kernel alone and its plain version at the main path's chunk shape
     timing.update(_time_chunk(db, gpu))
     return timing
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: SSB Q1.1's shape through the planner
+# ---------------------------------------------------------------------------
+
+Q11_SQL = ("select sum(lo_extendedprice * lo_discount) as revenue "
+           "from lineorder, date where lo_orderdate = d_datekey "
+           "and d_year = 1993 and lo_discount between 1 and 3 "
+           "and lo_quantity < 25")
+QTY_SQL = ("select count(*), sum(lo_extendedprice) from lineorder, qty "
+           "where lo_quantity = q_key and lo_discount between 4 and 6")
+# name -> (sql, config, the dense variant its membership table reads)
+Q11_CASES = {"q1_1": (Q11_SQL, {}, "K3"),
+             "q1_1_plain": (Q11_SQL, {"join_mxu_lookup": False}, "plain"),
+             "qty_identity": (QTY_SQL, {}, "identity")}
+
+
+def q11_db(seed: int, n: int):
+    """(Database, numpy columns) of lineorder's four Q1.1 columns at n rows
+    with SSB's ranges, SSB's date dimension and qty (q_key 1..40)."""
+    import datetime
+    import numpy as np
+    from pg_strom_tpu_torch import T
+    from pg_strom_tpu_torch.datastore import (Database, Table,
+                                              column_from_numpy as cn)
+    d0 = datetime.date(1992, 1, 1)
+    days = [d0 + datetime.timedelta(i)
+            for i in range((datetime.date(1999, 1, 1) - d0).days)]
+    datekey = np.array([d.year * 10000 + d.month * 100 + d.day
+                        for d in days], np.int32)
+    year = np.array([d.year for d in days], np.int32)
+    rng = np.random.default_rng(seed)
+    day = rng.integers(0, len(days), n)
+    qty = rng.integers(1, 51, n, dtype=np.int32)
+    cols = {"lo_orderdate": datekey[day], "lo_quantity": qty,
+            "lo_discount": rng.integers(0, 11, n, dtype=np.int32),
+            "lo_extendedprice": (qty * rng.integers(
+                90000, 210000, n, dtype=np.int32)).astype(np.int32)}
+    db = Database()
+    db.create(Table.from_columns("lineorder", {
+        c: cn(T.INT4, v) for c, v in cols.items()}))
+    db.create(Table.from_columns("date", {"d_datekey": cn(T.INT4, datekey),
+                                          "d_year": cn(T.INT4, year)}))
+    db.create(Table.from_columns("qty", {
+        "q_key": cn(T.INT4, np.arange(1, 41, dtype=np.int32))}))
+    return db, dict(cols, d_year=year[day])
+
+
+def q11_expected(name: str, c) -> list:
+    """The rows of Q11_CASES[name] from numpy int64."""
+    import numpy as np
+    disc, price = c["lo_discount"], c["lo_extendedprice"].astype(np.int64)
+    if name == "qty_identity":
+        m = (c["lo_quantity"] <= 40) & (disc >= 4) & (disc <= 6)
+        return [(int(m.sum()), int(price[m].sum()))]
+    m = ((c["d_year"] == 1993) & (disc >= 1) & (disc <= 3)
+         & (c["lo_quantity"] < 25))
+    return [(int((price[m] * disc[m]).sum()),)]
+
+
+def q11_run(db, name: str, c, nchunks: int, runs: int) -> dict:
+    """Q11_CASES[name] cold and runs - 1 warm through the planner: the
+    answer against numpy, every chunk on K5 and the membership table
+    built from the expected dense variant.  Times, launches and the
+    variant seen."""
+    import torch
+    from pg_strom_tpu_torch import override
+    from pg_strom_tpu_torch.exec import joinagg_exec as je
+    from pg_strom_tpu_torch.exec.devcache import TCACHE
+    from pg_strom_tpu_torch.ops import joinagg_scalar as js
+    from pg_strom_tpu_torch.plan.planner import plan_query
+    from pg_strom_tpu_torch.sql import parser as ast
+    sql, cfg, variant = Q11_CASES[name]
+    want = q11_expected(name, c)
+    seen = []
+    member_table = je.member_table
+
+    def spy(ht, dcap, use_mxu, row_bits):
+        seen.append("identity" if bool(ht["dense_ident"])
+                    else "K3" if use_mxu else "plain")
+        return member_table(ht, dcap, use_mxu, row_bits)
+
+    TCACHE.clear()
+    ms, launches = [], []
+    je.member_table = spy
+    try:
+        for _ in range(runs):
+            before = js.joinagg_scalar_cuda.launches
+            t0 = time.perf_counter()
+            with override(perfmon=True, **cfg):
+                pq = plan_query(ast.parse(sql), db)
+                rows = pq.execute()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(js.joinagg_scalar_cuda.launches - before)
+            counts = dict(pq.perfmon.counts)
+            got = [tuple(int(v) for v in r) for r in rows]
+            if got != want:
+                raise AssertionError(f"4a {name}: {got} != numpy {want}")
+            for ctr, n_want in (("joinagg_scalar_chunks", nchunks),
+                                ("device_chunks", nchunks),
+                                ("recheck_chunks", 0),
+                                ("unported_host_exact", 0)):
+                if counts.get(ctr, 0) != n_want:
+                    raise AssertionError(
+                        f"4a {name}: perfmon {ctr} = {counts.get(ctr, 0)}, "
+                        f"expected {n_want}: {counts}")
+    finally:
+        je.member_table = member_table
+    if seen != [variant]:
+        raise AssertionError(f"4a {name}: membership tables built from "
+                             f"{seen}, expected one from {variant}")
+    return {"ms": ms, "launches": launches, "variant": seen[0],
+            "rows": want}
+
+
+def phase_join_scalar(seed: int, log2n: int, gpu: str) -> dict:
+    """Q11_CASES through the planner over a 2^log2n-row lineorder."""
+    from pg_strom_tpu_torch.exec.devcache import TCACHE, chunk_capacity
+    n = 1 << log2n
+    t0 = time.perf_counter()
+    db, c = q11_db(seed, n)
+    nchunks = -(-n // chunk_capacity(n))
+    _log(f"4a: lineorder of {n} rows ({nchunks} chunks) generated in "
+         f"{time.perf_counter() - t0:.1f} s")
+    kernels = _zero_launches()
+    out = {}
+    for name in Q11_CASES:
+        r = q11_run(db, name, c, nchunks, 4)
+        if r["launches"] != [nchunks] * 4:
+            raise AssertionError(f"4a {name}: K5 launches {r['launches']} "
+                                 f"a run, expected {nchunks}")
+        out[name] = r
+        _log(f"4a {name} [{gpu}]: {r['rows']} exact against numpy int64; "
+             f"membership from the {r['variant']} table; K5 launches "
+             f"{r['launches']} and joinagg_scalar_chunks {nchunks} a run; "
+             f"cold {r['ms'][0]:.3f} ms, warm "
+             f"{[round(m, 3) for m in r['ms'][1:]]} ms")
+    out["launches"] = kernels["K5"].launches
+    TCACHE.clear()
+    return out
 
 
 def _time_chunk(db, gpu: str) -> dict:
@@ -1977,12 +2346,14 @@ def _window_sum_expected(cat, x, y):
 
 
 def _zero_launches():
+    from pg_strom_tpu_torch.ops import joinagg_scalar as js
     from pg_strom_tpu_torch.ops import mxu_lookup as ml
     from pg_strom_tpu_torch.ops import preagg_fused as pf
     from pg_strom_tpu_torch.ops import preagg_fused2 as pf2
     from pg_strom_tpu_torch.ops import preagg_pallas as pp
     kernels = {"K1": pf2.fused2_cuda, "K2": pf.fused_cuda,
-               "K3": ml.mxu_lookup_cuda, "K4": pp.pallas_cuda}
+               "K3": ml.mxu_lookup_cuda, "K4": pp.pallas_cuda,
+               "K5": js.joinagg_scalar_cuda}
     for k in kernels.values():
         k.launches = 0
     return kernels
@@ -3536,7 +3907,7 @@ def main(argv=None) -> int:
     how = (f"nvcc {kc.build_seconds:.2f} s, one process per source"
            if kc.build_seconds is not None
            else "already built from these sources")
-    _log(f"kernel build (K1, K2, K4, K3): {time.perf_counter() - t0:.2f} s "
+    _log(f"kernel build (K1-K5): {time.perf_counter() - t0:.2f} s "
          f"({how}) -> {os.path.relpath(kc.library_path())}")
     for line in (kc.build_log or "").splitlines():
         if "ptxas" in line or line.startswith("=="):
@@ -3551,7 +3922,9 @@ def main(argv=None) -> int:
     err = phase_kernels(args.seed, args.kernel_rows_log2)
     err = max(err, phase_kernels_k2k4(args.seed, args.kernel_rows_log2))
     k3_err = phase_kernels_k3(args.seed, args.kernel_rows_log2)
+    k5 = phase_kernels_k5(args.seed, gpu)
     timing = phase_slice(args.seed, args.rows_log2, gpu)
+    q11 = phase_join_scalar(args.seed, args.rows_log2, gpu)
     t0db = phase_testdb(args.seed, args.rows_log2, gpu, args.k4_parent,
                         min(args.window_rows_log2, args.rows_log2))
     f8 = phase_float8(args.seed, args.rows_log2 - 1,
@@ -3599,6 +3972,14 @@ def main(argv=None) -> int:
         "max_abs_err": max([err, k4["corr"]["err"]]
                            + [c["err"] for c in k4["chunk"].values()]),
         **{c: k4["chunk"][32][c] for c in cols},
+    }, {
+        "name": "joinagg_scalar (K5)",
+        "route": "cuda",
+        "source": "pg_strom_tpu_torch/ops/cuda/joinagg_scalar.cu",
+        "replaces": "none (XLA glue: a dense join under a scalar aggregate)",
+        "launches": q11["launches"],
+        "max_abs_err": k5["err"],
+        **{c: k5[c] for c in cols},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

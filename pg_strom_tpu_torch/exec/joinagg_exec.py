@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..config import config
-from ..datastore import Table, Chunk
+from ..datastore import Table, Chunk, column_stats
 from ..sqltypes import T
 from ..expr.ir import Expr, ColumnRef, referenced_columns, bind_columns
 from ..expr.catalog import device_expression_supported
@@ -29,6 +29,8 @@ from ..expr.lower_torch import ColMeta, schema_from_chunk_columns
 from ..ops.hashjoin import build_hash_table, dense_cap_for, \
     mxu_dense_window, _next_pow2
 from ..ops.joinagg import build_join_preagg_fn, build_join_preagg_pregrouped_fn
+from ..ops.joinagg_scalar import build_join_scalar_fn, member_table, \
+    scalar_program
 from ..ops.mxu_lookup import encode_table, lookup_digits
 from ..ops.preagg import AggInstance, merge_partials
 from ..ops.preagg_mxu import mxu_keys_supported, mxu_dense_supported, \
@@ -202,7 +204,21 @@ class JoinPreAggExecutor:
                 return self._prepare_pregrouped(pg, ht, pnames, refd, pcap,
                                                 host_args)
 
+        # ungrouped over a dense build, inside K5's envelope: the probe and
+        # the aggregate in one kernel pass (ops/joinagg_scalar.py)
+        scalar = None
+        if use_dense and not bound_groups:
+            prog = scalar_program(
+                pschema, pkeys, ppred, bound_aggs, probe_slots,
+                lambda i: column_stats(
+                    self.probe.columns[pnames[i]]).null_count > 0)
+            if prog is not None:
+                scalar = (prog, self._member_table(
+                    ht, ht_key, bnames, dcap, use_mxu, row_bits, pm))
+
         def fused(out_cap, strategy=self._strategy, G=None):
+            if scalar is not None:
+                return build_join_scalar_fn(*scalar)
             return build_join_preagg_fn(
                 pschema, pkeys, key_types, nbuckets, max_chain, out_cap,
                 ppred, jschema, probe_slots, build_slots, bound_groups,
@@ -318,6 +334,17 @@ class JoinPreAggExecutor:
         pm.bump("recheck_chunks")
         with pm.timer("cpu_fallback"):
             self._host_chunk_agg(cc, *host_args)
+
+    def _member_table(self, ht, ht_key, bnames, dcap, use_mxu, row_bits,
+                      pm) -> dict:
+        """K5's bitmap of the build keys, cached beside the hash table."""
+        aux_key = ("joinagg_member", ht_key, dcap, use_mxu)
+        member = TCACHE.get_aux(aux_key, pm)
+        if member is None:
+            member = member_table(ht, dcap, use_mxu, row_bits)
+            TCACHE.put_aux(aux_key, member, self.build.name,
+                           [self.build.columns[n] for n in bnames])
+        return member
 
     # -- star-schema pregrouped path ------------------------------------------
 

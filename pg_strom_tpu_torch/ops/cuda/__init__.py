@@ -17,11 +17,14 @@ gives way to its plain version.
   K4  preagg_pallas.cu    segmented column sums of a value matrix
       onehot_accum.cuh    their accumulation core (32-bit shared adds)
   K3  mxu_lookup.cu       table lookup out[i] = table[idx[i]]
+  K5  joinagg_scalar.cu   a dense-key join under a scalar aggregate
+      pred_program.cuh    K1's and K5's predicate program encoding
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,7 +36,7 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 SOURCES = ("preagg_fused2.cu", "preagg_fused.cu", "preagg_pallas.cu",
-           "mxu_lookup.cu")
+           "mxu_lookup.cu", "joinagg_scalar.cu")
 # sm_90a: Hopper with its arch-specific features; --fmad=false keeps float32
 # arithmetic IEEE-identical to the plain PyTorch versions (no contraction
 # of a multiply and an add into one rounding); -Xptxas -v reports
@@ -137,10 +140,20 @@ def library() -> ctypes.CDLL:
             L.pgstrom_k3_launch.restype = c_int
             L.pgstrom_k3_launch.argtypes = [
                 c_ptr, c_ptr, c_int, c_int, c_ll, c_ptr, c_int, c_int, c_ptr]
+            L.pgstrom_k5_launch.restype = c_int
+            L.pgstrom_k5_launch.argtypes = [c_ptr, c_int, c_ptr]
+            L.pgstrom_k5_args_size.restype = ctypes.c_size_t
             L.pgstrom_cuda_error_string.restype = ctypes.c_char_p
             L.pgstrom_cuda_error_string.argtypes = [c_int]
             _lib = L
         return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (asked once)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def cuda_error_text(code: int) -> str:

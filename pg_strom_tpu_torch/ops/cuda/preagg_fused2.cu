@@ -33,6 +33,7 @@
 #include <stdint.h>
 
 #include "onehot_accum.cuh"
+#include "pred_program.cuh"
 
 namespace {
 
@@ -41,11 +42,6 @@ namespace {
 constexpr int OP_W = 8;
 enum { OP_MASK, OP_CNT, OP_SUM_I4, OP_SUM_I8, OP_SUMSQ4, OP_SUMSQ4_BIG,
        OP_F4S, OP_FABS };
-// predicate program rows (postfix): (opcode, a1, ..., a8)
-constexpr int PRED_W = 9;
-enum { P_CMP = 1, P_NULLTEST, P_BOOLCOL, P_CONST, P_AND, P_OR, P_NOT };
-// plane element types
-enum { DT_I32, DT_F32, DT_I64, DT_BOOL };
 
 struct Tables {
   const int* dtype;               // plane element types [n_in]

@@ -108,7 +108,7 @@ def mxu_lookup_cuda(idx: torch.Tensor, table: torch.Tensor, n: int,
     mxu_lookup_reference.  Raises on a bad input, a build or a launch
     failure."""
     import ctypes
-    from .cuda import library, cuda_error_text
+    from .cuda import library, cuda_error_text, sm_count
     dev = idx.device
     if (idx.dtype != torch.int32 or table.dtype != torch.int32
             or table.device != dev or not idx.is_contiguous()
@@ -122,7 +122,8 @@ def mxu_lookup_cuda(idx: torch.Tensor, table: torch.Tensor, n: int,
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = sm_count(dev.index if dev.index is not None
+                   else torch.cuda.current_device())
     grid = max(1, min(-(-n // _BLOCK), sms * _BLOCKS_PER_SM))
     lib = library()
     with torch.cuda.device(dev), span("K3"):

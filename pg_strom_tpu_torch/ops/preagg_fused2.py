@@ -575,7 +575,8 @@ def _in_index_opt(sig: V2Sig, schema_idx: int, plane: str) -> int:
 
 # ---------------------------------------------------------------------------
 # lowering: sig.ops + predicate -> the int32 tables the kernel interprets
-# (layouts shared with ops/cuda/preagg_fused2.cu)
+# (layouts shared with ops/cuda/preagg_fused2.cu; the predicate's also with
+# ops/cuda/pred_program.cuh and K5)
 # ---------------------------------------------------------------------------
 
 # op table rows: (tag, col, din, vin, nl, x, flag, 0); x is the scal_i
@@ -597,8 +598,9 @@ P_CMP, P_NULLTEST, P_BOOLCOL, P_CONST, P_AND, P_OR, P_NOT = range(1, 8)
 _CMP_CODE = {"eq": 0, "ne": 1, "lt": 2, "le": 3, "gt": 4, "ge": 5}
 # the kernel keeps the (data, valid) stack in two 32-bit registers
 MAX_PRED_DEPTH = 31
-# plane element types the kernel reads
-DT_I32, DT_F32, DT_I64, DT_BOOL = range(4)
+# plane element types the kernels read (ops/cuda/pred_program.cuh); K1
+# reads no int16 plane, K5 (ops/joinagg_scalar.py) does
+DT_I32, DT_F32, DT_I64, DT_BOOL, DT_I16 = range(5)
 _DT_CODE = {torch.int32: DT_I32, torch.float32: DT_F32,
             torch.int64: DT_I64, torch.bool: DT_BOOL}
 

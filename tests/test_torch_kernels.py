@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: K1 (pg_strom_tpu_torch/ops/cuda/preagg_fused2.cu), K2
-(preagg_fused.cu), K3 (mxu_lookup.cu) and K4 (preagg_pallas.cu).
+(preagg_fused.cu), K3 (mxu_lookup.cu), K4 (preagg_pallas.cu) and K5
+(joinagg_scalar.cu).
 
 Needs an NVIDIA GPU and skips without one.  It imports no JAX, so it runs
 on a machine that has only PyTorch and the CUDA toolkit (tests/conftest.py
@@ -136,3 +137,15 @@ def test_k3_matches_plain_version(cuda_device, D, K):
     """K3 (ops/cuda/mxu_lookup.cu): bit-equal, edge and padding slots and
     out-of-range indexes included."""
     assert cs.k3_compare(np.random.default_rng(D * 8 + K), D, K, 1 << 16) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", cs.K5_ROWS)
+@pytest.mark.parametrize("name", cs.K5_CASES)
+def test_k5_matches_plain_version(cuda_device, name, n):
+    """K5 (ops/cuda/joinagg_scalar.cu): its output bit-equal to the plain
+    version's at 1 row, at 4099 rows of 8192-row planes (a tail that is no
+    whole 4-row group, live rows below the capacity) and on a full 2^26-row
+    chunk; the overflow case sets ERR_INT4_OVERFLOW; each launch counted."""
+    cap = 8192 if n == 4099 else n
+    assert cs.k5_compare(np.random.default_rng(12), name, n, cap) == 0

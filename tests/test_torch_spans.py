@@ -22,10 +22,15 @@ from pg_strom_tpu_torch.utils.perfmon import Perfmon, span
 
 JOIN_AGG = ("select sum(f.x * f.k) from f, d where f.k = d.k "
             "and d.y = 1993 and f.x < 25")
+# grouped by a probe column: the dense join's PyTorch branch, not K5
+JOIN_AGG_GROUPED = ("select f.x, sum(f.k), count(*) from f, d "
+                    "where f.k = d.k and d.y = 1993 group by f.x")
 GROUPED = "select key, sum(v), count(*) from t where v > 10 group by key"
 # (sql, config, its device call)
 QUERIES = {
     "join_agg": (JOIN_AGG, {"debug_force_offload": True}, "tpujoinagg"),
+    "join_agg_grouped": (JOIN_AGG_GROUPED, {"debug_force_offload": True},
+                         "tpujoinagg"),
     "grouped_preagg": (GROUPED, {"debug_force_tpupreagg": True},
                        "tpupreagg"),
 }
@@ -80,12 +85,17 @@ def test_execution_spans_nest(case):
     assert _inside(spans, "execute", "prepare"), spans
     assert _inside(spans, "execute", "dispatch")
     assert _inside(spans, "dispatch", dev)
-    # K1 (the grouped plan here) lowers inside the kernel
-    steps = (["probe", "gather", "lower", "reduce"] if case == "join_agg"
-             else ["reduce"])
+    # the dense join's branch probes, gathers, lowers and reduces in
+    # PyTorch; K1 (the grouped plan) lowers inside the kernel; K5 (the
+    # scalar join) is one pass, with none of the glue's spans
+    glue = ["probe", "gather", "lower", "reduce"]
+    steps = {"join_agg": [], "join_agg_grouped": glue,
+             "grouped_preagg": ["reduce"]}[case]
     for step in steps:
         assert _inside(spans, dev, step), (step, spans)
     if case == "join_agg":
+        assert not any(_inside(spans, dev, step) for step in glue), spans
+    if case == "join_agg_grouped":
         assert _inside(spans, "probe", "lower")
     assert _inside(spans, "execute", "chunks")
     assert _inside(spans, "chunks", "upload")        # the first run misses
