@@ -39,7 +39,10 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    a joined row; NULLs, int2, float4 and bool columns with OR, NOT and IS
    NULL; merged ranges over a nullable column and keys near both ends
    of int4) at 1, 4099 and 2^26 rows: the output bit-equal, the err lane as
-   expected, each launch counted; then K5 and its plain version timed
+   expected, each launch counted; K5Batch (the launch plan's K5) over
+   two chunks of 4100 and of 2^24 rows through four steps of constants
+   (ranges alone, a predicate clause, another year), bit-equal chunk by
+   chunk; then K5 and its plain version timed
    with CUDA events on a 2^26-row chunk of Q1.1's columns beside its
    bound (1.07 GB at 3.35 TB/s);
 4. the flagship slice: a port Database holding the flagship table (2^27
@@ -56,8 +59,10 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
    the plain table, and a count and int4 sum over qty on the identity,
    each cold and 3 warm: the membership table built from that variant,
    every chunk on K5 (joinagg_scalar_chunks and K5's launches equal the
-   chunk count a run, nothing replayed), the answer exact against numpy
-   int64; K5's launches here are the kernels line's;
+   chunk count a run, nothing replayed), K5's launch plan made by the
+   cold run (k5_plan_builds 1) and hit by each warm run with one read
+   from the device (k5_plan_hits 1, d2h_reads 1), the answer exact
+   against numpy int64; K5's launches here are the kernels line's;
 4b. general grouped aggregation: t0 of models/testdb.py at 2^27 rows at
    the default cache budget (tcache_size_mb 0: 40% of the card's memory;
    the budget and t0's resident plane bytes logged, 53 B a row with two
@@ -1073,6 +1078,86 @@ def k5_compare(rng, name: str, n: int, cap: int, dev=None) -> int:
     return err
 
 
+def k5_batch_compare(rng, n: int, dev=None) -> int:
+    """K5Batch (a launch plan's K5: one parameter block a chunk, one output
+    buffer, one read back) over two chunks of Q1.1's four int4 columns,
+    against the plain version chunk by chunk, through a run of constants:
+    the ranges alone rewritten, a program whose empty `between` keeps a
+    predicate clause (in a batch of its own, as the executor makes for
+    such a query), the ranges again in the first batch, another year's
+    membership table.  Each output bit-equal, each chunk's launch
+    counted; returns the number of steps compared."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from pg_strom_tpu_torch.expr.ir import BoolExpr, ColumnRef, Const, \
+        FuncExpr
+    from pg_strom_tpu_torch.expr.lower_torch import ColMeta
+    from pg_strom_tpu_torch.ops import joinagg_scalar as js
+    from pg_strom_tpu_torch.ops.preagg import AggInstance
+    from pg_strom_tpu_torch.sqltypes import T
+    dev = dev or torch.device("cuda")
+    keys, year = _ssb_datekeys()
+    rows = [n, n - 3]
+    schema = [ColMeta(c, T.INT4) for c in ("od", "disc", "qty", "ext")]
+    od_, disc_, qty_, ext_ = (ColumnRef(T.INT4, c.name, i)
+                              for i, c in enumerate(schema))
+
+    def program(lo, hi, q):
+        pred = BoolExpr(T.BOOL, "and", tuple(
+            FuncExpr(T.BOOL, f"{op}::int4,int4", (c, Const(T.INT4, v)))
+            for op, c, v in ((">=", disc_, lo), ("<=", disc_, hi),
+                             ("<", qty_, q))))
+        aggs = [AggInstance("sum", "i4", ("count", "sum_i"), (FuncExpr(
+            T.INT4, "*::int4,int4", (ext_, disc_)),))]
+        return js.scalar_program(schema, [od_], pred, aggs, [0, 1, 2, 3],
+                                 lambda i: False)
+
+    def member(y):
+        build = keys[year == y]
+        hit = np.zeros(16384, bool)
+        hit[build - build.min()] = True
+        return js.member_from_mask(torch.from_numpy(hit).to(dev),
+                                   int(build.min()))
+
+    p0 = program(1, 3, 25)
+    chunks = []                      # each chunk's planes in p0.inputs order
+    for _ in rows:
+        qty = rng.integers(1, 51, n).astype(np.int32)
+        cols = (keys[rng.integers(0, keys.shape[0], n)],
+                rng.integers(0, 11, n).astype(np.int32), qty,
+                (qty * rng.integers(90000, 209901, n)).astype(np.int32))
+        chunks.append([torch.from_numpy(cols[i]).to(dev)
+                       for i, _ in p0.inputs])
+    batch = js.K5Batch(p0, member(1993), chunks, rows)
+    steps = [(p0, 1993),
+             (dataclasses.replace(p0, ranges=program(2, 4, 24).ranges), 1993),
+             (program(5, 3, 25), 1994),
+             (dataclasses.replace(p0, ranges=program(0, 9, 50).ranges), 1998)]
+    for prog, y in steps:
+        m = member(y)
+        if prog.pred.shape == p0.pred.shape:
+            batch.set_member(m)
+            batch.set_ranges(prog.ranges)
+            b = batch
+        else:                    # a program of its own: a batch of its own
+            b = js.K5Batch(prog, m, chunks, rows)
+        before = js.joinagg_scalar_cuda.launches
+        b.launch()
+        got = b.fetch()
+        want = np.stack([js.joinagg_scalar_reference(prog, c, m, r).cpu()
+                         .numpy() for c, r in zip(chunks, rows)])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"K5Batch at {y}, ranges "
+                                 f"{prog.ranges.tolist()}: {got.tolist()} "
+                                 f"differs from the plain version's "
+                                 f"{want.tolist()}")
+        if dev.type == "cuda" and \
+                js.joinagg_scalar_cuda.launches != before + len(rows):
+            raise AssertionError("K5Batch's launches were not counted")
+    return len(steps)
+
+
 def phase_kernels_k5(seed: int, gpu: str) -> dict:
     """K5 against its plain version over K5_CASES at 1, 4099 (in 8192-row
     planes) and 2^26 rows, then timed on a 2^26-row chunk of Q1.1's four
@@ -1088,6 +1173,11 @@ def phase_kernels_k5(seed: int, gpu: str) -> dict:
                 np.random.default_rng(seed * 1000 + 300 + i), name, n, cap))
             _log(f"K5 case {name}: {n} rows of {cap} bit-equal to the plain "
                  "version")
+    for n in (4100, 1 << 24):
+        steps = k5_batch_compare(np.random.default_rng(seed * 1000 + 350),
+                                 n)
+        _log(f"K5Batch: two chunks of {n} rows, {steps} steps of constants "
+             "bit-equal to the plain version")
     n = 1 << 26
     prog, planes, member = _k5_case("q1_1", np.random.default_rng(seed), n,
                                     n, torch.device("cuda"))
@@ -1288,9 +1378,10 @@ def q11_expected(name: str, c) -> list:
 
 def q11_run(db, name: str, c, nchunks: int, runs: int) -> dict:
     """Q11_CASES[name] cold and runs - 1 warm through the planner: the
-    answer against numpy, every chunk on K5 and the membership table
-    built from the expected dense variant.  Times, launches and the
-    variant seen."""
+    answer against numpy, every chunk on K5, the membership table built
+    from the expected dense variant, K5's launch plan made by the cold
+    run and hit by each warm run with one read from the device.  Times,
+    launches and the variant seen."""
     import torch
     from pg_strom_tpu_torch import override
     from pg_strom_tpu_torch.exec import joinagg_exec as je
@@ -1326,10 +1417,15 @@ def q11_run(db, name: str, c, nchunks: int, runs: int) -> dict:
             got = [tuple(int(v) for v in r) for r in rows]
             if got != want:
                 raise AssertionError(f"4a {name}: {got} != numpy {want}")
+            # the cold run makes K5's launch plan, each warm run hits it
+            # and reads the device once
+            plan = ((("k5_plan_builds", 1), ("k5_plan_hits", 0))
+                    if len(ms) == 1 else
+                    (("k5_plan_hits", 1), ("d2h_reads", 1)))
             for ctr, n_want in (("joinagg_scalar_chunks", nchunks),
                                 ("device_chunks", nchunks),
                                 ("recheck_chunks", 0),
-                                ("unported_host_exact", 0)):
+                                ("unported_host_exact", 0)) + plan:
                 if counts.get(ctr, 0) != n_want:
                     raise AssertionError(
                         f"4a {name}: perfmon {ctr} = {counts.get(ctr, 0)}, "

@@ -20,6 +20,10 @@ same columns.
     shares the same LRU and byte budget through put_aux / get_aux, the
     cross-query extension of the reference's DMA-hashtable-once pattern
     (gpuhashjoin.c:4497-4555).
+  - Launch plans (put_plan / get_plan) are an executor's state for its
+    repeat queries over a cached chunk entry, kept on that entry: they
+    leave the cache with it (eviction, replacement, a column garbage
+    collected, clear), so a plan never serves or keeps stale planes.
 """
 
 from __future__ import annotations
@@ -36,11 +40,13 @@ import torch
 from ..config import config
 from ..datastore import Table, Chunk
 from ..expr.lower_torch import planes_of_column
-from ..utils.perfmon import span
+from ..utils.perfmon import bump_active, span
 
 
 # the default budget when config.device is the CPU (tests, rehearsals)
 CPU_BUDGET_MB = 8192
+# launch plans a cached chunk entry keeps (put_plan), the oldest dropped
+MAX_PLANS = 16
 
 
 def device() -> torch.device:
@@ -69,9 +75,11 @@ def chunk_capacity(nrows: int) -> int:
 
 
 def fetch_host(tree):
-    """Device->host read of a result tree: every tensor leaf to numpy in
-    one `.cpu()` pass (which waits for the device); other leaves as is."""
+    """Device->host read of a result tree: every tensor leaf to numpy by
+    its own `.cpu()` (each waits for the device; counted in the executing
+    query's `d2h_reads`); other leaves as is."""
     if isinstance(tree, torch.Tensor):
+        bump_active("d2h_reads")
         return tree.cpu().numpy()
     if isinstance(tree, dict):
         return {k: fetch_host(v) for k, v in tree.items()}
@@ -112,6 +120,8 @@ class _Entry:
     nbytes: int
     col_refs: list               # weakrefs keeping eviction honest
     hits: int = 0
+    # launch plans over this entry's chunks, by the executor's key
+    plans: dict = dataclasses.field(default_factory=dict)
 
     def alive(self) -> bool:
         return all(r() is not None for r in self.col_refs)
@@ -140,6 +150,9 @@ class DeviceChunkCache:
         self.misses = 0
         self.evictions = 0
         self.streamed = 0        # chunks served uncached (budget/disabled)
+        # set by a weakref callback when a cached entry's Column dies: the
+        # sweep scans the LRU only then
+        self._dead = False
 
     def budget_bytes(self) -> int:
         """The byte budget: `tcache_size_mb` when set, else 40% of the
@@ -161,7 +174,16 @@ class DeviceChunkCache:
         with self._mu:
             self._lru.clear()
 
+    def _refs(self, cols: Sequence) -> list:
+        return [weakref.ref(c, self._column_died) for c in cols]
+
+    def _column_died(self, _ref) -> None:
+        self._dead = True
+
     def _sweep(self) -> None:
+        if not self._dead:
+            return
+        self._dead = False
         dead = [k for k, e in self._lru.items() if not e.alive()]
         for k in dead:
             del self._lru[k]
@@ -171,6 +193,17 @@ class DeviceChunkCache:
         while self._lru and self.total_bytes() + incoming > budget:
             self._lru.popitem(last=False)
             self.evictions += 1
+
+    @staticmethod
+    def _chunks_key(table: Table, names: Sequence[str], cap: int,
+                    dev: torch.device) -> tuple:
+        ids = tuple(table.columns[n].uid for n in names)
+        if not ids:
+            # count(*)-style empty layouts: key on the table's own columns
+            # (+nrows) so two tables can never share an entry
+            ids = ("norows", table.nrows) + tuple(
+                c.uid for c in table.columns.values())
+        return ("chunks", ids, cap, str(dev))
 
     def chunks_for(self, table: Table, names: Sequence[str], cap: int,
                    pm=None) -> Iterator[CachedChunk]:
@@ -185,13 +218,7 @@ class DeviceChunkCache:
             yield from self._stream(table, names, n, cap, dev, pm)
             return
 
-        ids = tuple(c.uid for c in cols)
-        if not ids:
-            # count(*)-style empty layouts: key on the table's own columns
-            # (+nrows) so two tables can never share an entry
-            ids = ("norows", n) + tuple(
-                c.uid for c in table.columns.values())
-        key = ("chunks", ids, cap, str(dev))
+        key = self._chunks_key(table, names, cap, dev)
         with span("chunks", pm), self._mu:
             self._sweep()
             ent = self._lru.get(key)
@@ -205,10 +232,7 @@ class DeviceChunkCache:
             yield from ent.chunks
             return
 
-        nchunks = -(-n // cap)
-        est = nchunks * cap * sum(
-            sum(p.dtype.itemsize for p in planes_of_column(c)) for c in cols)
-        if est > self.budget_bytes():
+        if not self._fits(cols, n, cap):
             yield from self._stream(table, names, n, cap, dev, pm)
             return
 
@@ -228,7 +252,24 @@ class DeviceChunkCache:
             self._evict_to_fit(nbytes)
             self._lru[key] = _Entry(table_name=table.name, kind="chunks",
                                     chunks=chunks, aux=None, nbytes=nbytes,
-                                    col_refs=[weakref.ref(c) for c in cols])
+                                    col_refs=self._refs(cols))
+
+    def _fits(self, cols: Sequence, n: int, cap: int) -> bool:
+        """Whether n rows of cols, in chunks of cap, fit the byte budget."""
+        est = -(-n // cap) * cap * sum(
+            sum(p.dtype.itemsize for p in planes_of_column(c)) for c in cols)
+        return est <= self.budget_bytes()
+
+    def cached_chunks(self, table: Table, names: Sequence[str], cap: int,
+                      pm=None) -> Optional[list[CachedChunk]]:
+        """The table's chunks as chunks_for caches them (loaded now where
+        they are not resident), or None where chunks_for would stream
+        them."""
+        if not (config.enabled and config.enable_tcache and table.nrows
+                and self._fits([table.columns[n] for n in names],
+                               table.nrows, cap)):
+            return None
+        return list(self.chunks_for(table, names, cap, pm))
 
     def _load(self, table: Table, names, start: int, stop: int, cap: int,
               dev: torch.device, pm) -> tuple[CachedChunk, int]:
@@ -284,7 +325,45 @@ class DeviceChunkCache:
             self._evict_to_fit(nbytes)
             self._lru[("aux",) + key] = _Entry(
                 table_name=table_name, kind="aux", chunks=None, aux=value,
-                nbytes=nbytes, col_refs=[weakref.ref(c) for c in cols])
+                nbytes=nbytes, col_refs=self._refs(cols))
+
+    # -- launch plans ---------------------------------------------------------
+
+    def get_plan(self, table: Table, names: Sequence[str], cap: int,
+                 key: tuple) -> Any:
+        """The launch plan filed under `key` on the table's cached chunk
+        entry (chunks_for's), or None.  A hit counts as a use of that
+        entry (its LRU place, its hits)."""
+        if not (config.enabled and config.enable_tcache):
+            return None
+        ckey = self._chunks_key(table, names, cap, device())
+        with self._mu:
+            self._sweep()
+            ent = self._lru.get(ckey)
+            plan = ent.plans.get(key) if ent is not None else None
+            if plan is not None:
+                self._lru.move_to_end(ckey)
+                ent.hits += 1
+        return plan
+
+    def put_plan(self, table: Table, names: Sequence[str], cap: int,
+                 key: tuple, plan: Any) -> bool:
+        """File `plan` under `key` on the table's cached chunk entry; False,
+        and nothing filed, when the entry is not cached now.  An entry
+        keeps its MAX_PLANS newest plans."""
+        if not (config.enabled and config.enable_tcache):
+            return False
+        ckey = self._chunks_key(table, names, cap, device())
+        with self._mu:
+            self._sweep()
+            ent = self._lru.get(ckey)
+            if ent is None:
+                return False
+            ent.plans.pop(key, None)
+            if len(ent.plans) >= MAX_PLANS:
+                del ent.plans[next(iter(ent.plans))]
+            ent.plans[key] = plan
+        return True
 
     def info_rows(self) -> list[dict]:
         with self._mu:

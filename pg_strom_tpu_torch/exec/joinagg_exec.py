@@ -14,6 +14,8 @@ flagged chunk row-wise — with the reference's perfmon counters.
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,8 +31,9 @@ from ..expr.lower_torch import ColMeta, schema_from_chunk_columns
 from ..ops.hashjoin import build_hash_table, dense_cap_for, \
     mxu_dense_window, _next_pow2
 from ..ops.joinagg import build_join_preagg_fn, build_join_preagg_pregrouped_fn
-from ..ops.joinagg_scalar import build_join_scalar_fn, member_table, \
-    scalar_program
+from ..ops.joinagg_scalar import K5Batch, ScalarProgram, \
+    build_join_scalar_fn, conjuncts, member_table, range_clause, \
+    scalar_program, split_ranges
 from ..ops.mxu_lookup import encode_table, lookup_digits
 from ..ops.preagg import AggInstance, merge_partials
 from ..ops.preagg_mxu import mxu_keys_supported, mxu_dense_supported, \
@@ -103,7 +106,7 @@ class JoinPreAggExecutor:
 
     def run(self) -> list[tuple]:
         with self.perfmon.timer("prepare"):
-            launch = self._prepare()
+            launch = self._planned() or self._prepare()
         return launch()
 
     def _prepare(self):
@@ -205,7 +208,8 @@ class JoinPreAggExecutor:
                                                 host_args)
 
         # ungrouped over a dense build, inside K5's envelope: the probe and
-        # the aggregate in one kernel pass (ops/joinagg_scalar.py)
+        # the aggregate in one kernel pass (ops/joinagg_scalar.py), through
+        # a launch plan where the probe chunks stay resident
         scalar = None
         if use_dense and not bound_groups:
             prog = scalar_program(
@@ -213,8 +217,14 @@ class JoinPreAggExecutor:
                 lambda i: column_stats(
                     self.probe.columns[pnames[i]]).null_count > 0)
             if prog is not None:
+                member_key = ("joinagg_member", ht_key, dcap, use_mxu)
                 scalar = (prog, self._member_table(
-                    ht, ht_key, bnames, dcap, use_mxu, row_bits, pm))
+                    ht, member_key, bnames, dcap, use_mxu, row_bits, pm))
+                chunks = TCACHE.cached_chunks(self.probe, pnames, pcap, pm)
+                if chunks and not all(c.recheck_any for c in chunks):
+                    plan = self._k5_plan(*scalar, member_key, chunks, jlayout,
+                                         bound_aggs, pnames, pcap)
+                    return lambda: self._run_planned(plan)
 
         def fused(out_cap, strategy=self._strategy, G=None):
             if scalar is not None:
@@ -335,16 +345,121 @@ class JoinPreAggExecutor:
         with pm.timer("cpu_fallback"):
             self._host_chunk_agg(cc, *host_args)
 
-    def _member_table(self, ht, ht_key, bnames, dcap, use_mxu, row_bits,
+    def _member_table(self, ht, aux_key, bnames, dcap, use_mxu, row_bits,
                       pm) -> dict:
-        """K5's bitmap of the build keys, cached beside the hash table."""
-        aux_key = ("joinagg_member", ht_key, dcap, use_mxu)
+        """K5's bitmap of the build keys, cached beside the hash table
+        under aux_key."""
         member = TCACHE.get_aux(aux_key, pm)
         if member is None:
             member = member_table(ht, dcap, use_mxu, row_bits)
             TCACHE.put_aux(aux_key, member, self.build.name,
                            [self.build.columns[n] for n in bnames])
         return member
+
+    # -- K5's launch plan ------------------------------------------------------
+
+    def _k5_keys(self) -> tuple:
+        """(plan key, build key) of this query.  The plan key is its shape:
+        the probe keys, the aggregates and the probe predicate's
+        conjuncts, each whole but for the constant of a `column op
+        constant` conjunct, which K5 reads as a range (the columns and the
+        device are in the key of the chunk entry the plan is filed on).
+        The build key names the build side's columns, keys and predicate,
+        whose membership table the plan finds in `members`."""
+        conjs = tuple((r[0], r[1], r[2].type) if r is not None else c
+                      for c, r in ((c, range_clause(c))
+                                   for c in conjuncts(self.probe_pred)))
+        return (("k5_plan", config.join_mxu_lookup, tuple(self.probe_keys),
+                 conjs, tuple(self.aggs)),
+                (tuple(c.uid for c in self.build.columns.values()),
+                 tuple(self.build_keys), self.build_pred))
+
+    def _planned(self):
+        """The run of a query whose shape has a launch plan (K5 over the
+        resident probe chunks, nothing read from the device before the
+        launch and one read after), or None: the query then runs through
+        _prepare, which makes the plan where K5 takes the query."""
+        if self.group_exprs:
+            return None                  # K5 takes no GROUP BY
+        keys = self._k5_keys()
+        pm = self.perfmon
+        # _prepare's capacity; the kernel library its plan needs is loaded
+        plan = TCACHE.get_plan(self.probe, self.probe.column_names,
+                               chunk_capacity(self.probe.nrows), keys[0])
+        if plan is None:
+            return None
+        member_key = plan.members.get(keys[1])
+        member = (TCACHE.get_aux(member_key, pm)
+                  if member_key is not None else None)
+        ranges = plan.ranges(self.probe_pred) if member is not None else None
+        if ranges is None or not plan.lock.acquire(blocking=False):
+            return None
+        plan.batch.set_member(member)
+        plan.batch.set_ranges(ranges)
+        pm.bump("k5_plan_hits")
+        return lambda: self._run_planned(plan)
+
+    def _k5_plan(self, prog, member, member_key, chunks, jlayout, bound_aggs,
+                 pnames, pcap) -> "_K5Plan":
+        """A launch plan of prog over the resident probe chunks, locked for
+        this query.  Filed on the chunks' cache entry (`k5_plan_builds`)
+        where the entry holds none for the query's shape and the plan
+        serves every range constant; the membership table is filed under
+        the build side in the plan the entry holds."""
+        dev_chunks = [c for c in chunks if not c.recheck_any]
+        plan = _K5Plan(
+            batch=K5Batch(prog, member,
+                          [[c.planes[i][0 if plane == "data" else 1]
+                            for i, plane in prog.inputs] for c in dev_chunks],
+                          [c.nrows for c in dev_chunks]),
+            device_chunks=dev_chunks,
+            host_chunks=[c for c in chunks if c.recheck_any],
+            aggs=bound_aggs, jlayout=jlayout,
+            agg_dicts=self._agg_dicts_join, prog0=prog)
+        plan.lock.acquire()
+        keys = self._k5_keys()
+        filed = TCACHE.get_plan(self.probe, pnames, pcap, keys[0])
+        if filed is None and np.array_equal(
+                plan.ranges(self.probe_pred), prog.ranges) and \
+                TCACHE.put_plan(self.probe, pnames, pcap, keys[0], plan):
+            self.perfmon.bump("k5_plan_builds")
+            filed = plan
+        if filed is not None:
+            if len(filed.members) >= _MAX_MEMBERS:
+                filed.members.clear()
+            filed.members[keys[1]] = member_key
+        return plan
+
+    def _run_planned(self, plan: "_K5Plan") -> list[tuple]:
+        """Launch the plan's batch, read it back once, release the plan,
+        then absorb each chunk's row; a row with K5's err lane set, and a
+        chunk that needs the host (recheck_any), replays alone."""
+        pm = self.perfmon
+        try:
+            with pm.timer("dispatch"):
+                pm.device_call("tpujoinagg", plan.batch.launch)
+            with pm.timer("device_wait"):
+                rows = plan.batch.fetch()
+        finally:
+            plan.lock.release()
+        states: dict[tuple, list[dict]] = {}
+        displays: dict[tuple, tuple] = {}
+        host_args = (states, displays, list(plan.jlayout), [], plan.aggs)
+        for cc in plan.host_chunks:
+            with pm.timer("cpu_fallback"):
+                self._host_chunk_agg(cc, *host_args)
+        for cc, row in zip(plan.device_chunks, rows):
+            if row[0] != 0:
+                pm.bump("recheck_chunks")
+                with pm.timer("cpu_fallback"):
+                    self._host_chunk_agg(cc, *host_args)
+                continue
+            absorb_preagg_out(
+                {"gmask": _ONE, "keys": (),
+                 "slots": tuple({kind: row[i:i + 1] for kind, i in s_}
+                                for s_ in plan.batch.prog.slots)},
+                [], plan.aggs, [], states, displays, pm, plan.agg_dicts)
+        return finalize_agg_states([], plan.aggs, states, displays)
 
     # -- star-schema pregrouped path ------------------------------------------
 
@@ -596,6 +711,42 @@ class JoinPreAggExecutor:
                                      states, displays, jnames, bound_groups,
                                      bound_aggs)
         return finalize_agg_states(bound_groups, bound_aggs, states, displays)
+
+
+_ONE = np.ones(1, dtype=bool)
+_MAX_MEMBERS = 256       # build sides a launch plan keeps membership keys of
+
+
+@dataclasses.dataclass(eq=False)
+class _K5Plan:
+    """K5 over a probe table's resident chunks for one query shape
+    (JoinPreAggExecutor._k5_keys): the batch (parameter blocks, result
+    buffer, pinned twin) and what _prepare derives that no range constant
+    changes.  Filed on the chunks' cache entry, it leaves the cache with
+    them.  `members` maps a build side to the cache key of its membership
+    table; `lock` keeps the batch to one query at a time."""
+    batch: K5Batch
+    device_chunks: list          # the chunks K5 runs, in the batch's order
+    host_chunks: list            # recheck_any chunks: the host replays them
+    aggs: list                   # the aggregates, bound to jlayout
+    jlayout: dict                # joined column name -> slot
+    agg_dicts: list
+    prog0: ScalarProgram         # the lowering the plan was made of
+    members: dict = dataclasses.field(default_factory=dict)
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+    def ranges(self, pred: Optional[Expr]) -> Optional[np.ndarray]:
+        """prog0's range rows with the bounds of pred's range conjuncts, or
+        None where one of them lowers to no range (no value meets it, or
+        its column's range would be empty): that query lowers its own
+        program through _prepare."""
+        ranges, rest = split_ranges(conjuncts(pred))
+        if any(range_clause(c) is not None for c in rest):
+            return None
+        out = self.prog0.ranges.copy()
+        if ranges:
+            out[:, 2:] = list(ranges.values())
+        return out
 
 
 class _HostCC:

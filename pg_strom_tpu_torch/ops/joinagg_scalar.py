@@ -38,6 +38,10 @@ this module declines.
   the ungrouped preagg output dict (`err`, `collision`, `ngroups`,
   `gmask`, `keys`, `slots`, `nout`), as joinagg.build_join_preagg_fn's
   dense branch emits it.
+* `K5Batch` runs K5 for a launch plan (exec/joinagg_exec.py) over the
+  resident chunks of a repeated query shape: a parameter block a chunk
+  made once, the constants written in place, one output buffer read
+  back in one copy.
 """
 
 from __future__ import annotations
@@ -147,26 +151,15 @@ def scalar_program(pschema, probe_keys: Sequence[Expr],
         stack.extend(x.children())
     # top-level conjuncts `column op integer constant` become ranges; the
     # rest stays a postfix program
-    ranges: dict = {}
-    rest = []
-    for c in _conjuncts(probe_pred):
-        r = _range_of(c)
-        lo_hi = ranges.get(r[0].index) if r is not None else None
-        if r is None or (lo_hi is not None
-                         and max(lo_hi[0], r[1]) > min(lo_hi[1], r[2])):
-            rest.append(c)         # an empty intersection stays a clause
-        elif lo_hi is None:
-            ranges[r[0].index] = [r[1], r[2]]
-        else:
-            lo_hi[:] = [max(lo_hi[0], r[1]), min(lo_hi[1], r[2])]
+    ranges, rest = split_ranges(conjuncts(probe_pred))
     rest_pred = (None if not rest else rest[0] if len(rest) == 1
                  else BoolExpr(T.BOOL, "and", tuple(rest)))
     pred, depth = _lower_pred(rest_pred, _Layout(tuple(inputs)))
     if (depth > PRED_DEPTH or len(pred) > MAX_PRED
             or len(ranges) > MAX_RANGE):
         return None
-    range_rows = [(pos[(i, "data")], pos.get((i, "valid"), -1), lo, hi)
-                  for i, (lo, hi) in ranges.items()]
+    range_rows = [(pos[(c.index, "data")], pos.get((c.index, "valid"), -1),
+                   lo, hi) for c, (lo, hi) in ranges.items()]
 
     def lower_arg(e: Expr, rows: list) -> Optional[int]:
         """Emit e's postfix rows; its stack depth, or None outside the
@@ -244,18 +237,18 @@ def scalar_program(pschema, probe_keys: Sequence[Expr],
         slots=tuple(slots))
 
 
-def _conjuncts(e: Optional[Expr]) -> list:
+def conjuncts(e: Optional[Expr]) -> list:
     if e is None:
         return []
     if isinstance(e, BoolExpr) and e.op == "and":
-        return [c for a in e.args for c in _conjuncts(a)]
+        return [c for a in e.args for c in conjuncts(a)]
     return [e]
 
 
-def _range_of(e: Expr) -> Optional[tuple]:
-    """(column, lo, hi) of a clause `column op constant` (either order) over
-    an int2 / int4 / date column, TRUE where lo <= column <= hi; None for
-    any other clause, and for one that no value meets."""
+def range_clause(e: Expr) -> Optional[tuple]:
+    """(column, op, constant) of a clause `column op constant` (either
+    order, op flipped to put the column first) over an int2 / int4 / date
+    column and an integer or date constant; None for any other clause."""
     if not isinstance(e, FuncExpr) or len(e.args) != 2:
         return None
     op = e.fname.split("::", 1)[0]
@@ -264,15 +257,45 @@ def _range_of(e: Expr) -> Optional[tuple]:
         col, c, op = c, col, _FLIP.get(op)
     if (not isinstance(col, ColumnRef) or not isinstance(c, Const)
             or op not in _FLIP or col.type not in _KEY_TYPES
-            or c.type not in (T.INT2, T.INT4, T.INT8, T.DATE)
-            or c.value is None):
+            or c.type not in (T.INT2, T.INT4, T.INT8, T.DATE)):
         return None
+    return col, op, c
+
+
+def _range_of(e: Expr) -> Optional[tuple]:
+    """(column, lo, hi) of a clause `column op constant` (range_clause),
+    TRUE where lo <= column <= hi; None for any other clause, and for one
+    that no value meets."""
+    r = range_clause(e)
+    if r is None or r[2].value is None:
+        return None
+    col, op, c = r
     v = int(c.value)
     lo, hi = {"=": (v, v), "<": (_I32_MIN, v - 1), "<=": (_I32_MIN, v),
               ">": (v + 1, _I32_MAX), ">=": (v, _I32_MAX)}[op]
     if not _I32_MIN <= lo <= hi <= _I32_MAX:
         return None
     return col, lo, hi
+
+
+def split_ranges(conjs: Sequence[Expr]) -> tuple[dict, list]:
+    """The conjuncts `column op integer constant` folded into one [lo, hi]
+    a column (a dict by ColumnRef, in the order the columns first
+    appear), and the rest: the other clauses, one that no value meets and
+    one whose range would leave its column's empty."""
+    ranges: dict = {}
+    rest = []
+    for c in conjs:
+        r = _range_of(c)
+        lo_hi = ranges.get(r[0]) if r is not None else None
+        if r is None or (lo_hi is not None
+                         and max(lo_hi[0], r[1]) > min(lo_hi[1], r[2])):
+            rest.append(c)         # an empty intersection stays a clause
+        elif lo_hi is None:
+            ranges[r[0]] = [r[1], r[2]]
+        else:
+            lo_hi[:] = [max(lo_hi[0], r[1]), min(lo_hi[1], r[2])]
+    return ranges, rest
 
 
 def _shape(rows: list) -> int:
@@ -412,15 +435,10 @@ def k5_args(prog: ScalarProgram, member: dict) -> _K5Args:
     """The kernel's parameter with everything but the planes, nrows and
     the output filled in (the caller keeps it for the query's chunks)."""
     a = _K5Args()
-    a.member = member["bits"].data_ptr()
-    a.kmin = member["kmin"]
-    a.dcap = member["dcap"]
+    _set_member(a, member)
     a.dtype[:len(prog.dtypes)] = prog.dtypes
     a.pred[:prog.pred.size] = prog.pred.reshape(-1).tolist()
-    # (din, vin, lo, hi - lo): the kernel tests (unsigned)(x - lo) <= hi - lo
-    a.range[:prog.ranges.size] = [
-        v for din, vin, lo, hi in prog.ranges.tolist()
-        for v in (din, vin, lo, hi - lo - (1 << 32) * (hi - lo > _I32_MAX))]
+    _set_ranges(a, prog.ranges)
     a.arg[:prog.arg.size] = prog.arg.reshape(-1).tolist()
     a.arg_start[:len(prog.arg_start)] = prog.arg_start
     a.arg_shape[:prog.n_args] = prog.arg_shape
@@ -430,11 +448,24 @@ def k5_args(prog: ScalarProgram, member: dict) -> _K5Args:
     a.n_args = prog.n_args
     a.key_d = prog.key_d
     a.key_v = prog.key_v
+    return a
+
+
+def _set_member(a: _K5Args, member: dict) -> None:
+    a.member = member["bits"].data_ptr()
+    a.kmin = member["kmin"]
+    a.dcap = member["dcap"]
     # the 32-bit offset (unsigned)key - (unsigned)kmin is exact for 32-bit
     # keys when kmin lies in [-2^31, 2^31 - dcap] (so dcap < 2^32)
     a.key32 = int(_I32_MIN <= member["kmin"] <= (1 << 31) - member["dcap"]
                   and member["dcap"] < 1 << 32)
-    return a
+
+
+def _set_ranges(a: _K5Args, ranges: np.ndarray) -> None:
+    # (din, vin, lo, hi - lo): the kernel tests (unsigned)(x - lo) <= hi - lo
+    a.range[:ranges.size] = [
+        v for din, vin, lo, hi in ranges.tolist()
+        for v in (din, vin, lo, hi - lo - (1 << 32) * (hi - lo > _I32_MAX))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -452,6 +483,17 @@ def _k5_library() -> ctypes.CDLL:
 
 _BLOCK = 256             # ops/cuda/joinagg_scalar.cu's K5_BLOCK
 _BLOCKS_PER_SM = 2       # ... and K5_MIN_BLOCKS: the blocks an SM holds
+
+
+def _grid(nrows: int, dev: torch.device) -> int:
+    """Blocks of a launch over nrows rows: one 4-row group a thread, at
+    most the blocks the card holds at once."""
+    from .cuda import sm_count
+    ngroups = -(-nrows // 4)
+    return max(1, min(-(-ngroups // _BLOCK),
+                      sm_count(dev.index if dev.index is not None
+                               else torch.cuda.current_device())
+                      * _BLOCKS_PER_SM))
 
 
 def _check(prog: ScalarProgram, planes, member: dict, nrows: int) -> None:
@@ -480,16 +522,12 @@ def joinagg_scalar_cuda(prog: ScalarProgram, planes, member: dict,
     """Launch K5: the same int64 [2 + 2 * n_args] as
     joinagg_scalar_reference.  Raises on a bad input, a build or a launch
     failure."""
-    from .cuda import cuda_error_text, sm_count
+    from .cuda import cuda_error_text
     _check(prog, planes, member, nrows)
     dev = planes[0].device
     if args is None:
         args = k5_args(prog, member)
-    ngroups = -(-nrows // 4)
-    grid = max(1, min(-(-ngroups // _BLOCK),
-                      sm_count(dev.index if dev.index is not None
-                               else torch.cuda.current_device())
-                      * _BLOCKS_PER_SM))
+    grid = _grid(nrows, dev)
     lib = _k5_library()
     with torch.cuda.device(dev), span("K5"):
         out = torch.zeros(2 + 2 * prog.n_args, dtype=torch.int64,
@@ -546,3 +584,86 @@ def build_join_scalar_fn(prog: ScalarProgram, member: dict) -> Callable:
                 **const}
 
     return f
+
+
+class K5Batch:
+    """K5 over a fixed list of resident chunks, for a launch plan's
+    queries.  Made once: a parameter block per chunk with its planes, rows
+    and output row filled in, one int64 [nchunks, 2 + 2 * n_args] buffer
+    on the device and, on CUDA, a pinned host twin of it.  Per query:
+    `set_member` and `set_ranges` write what the query's constants reach,
+    `launch` zeroes the buffer once and launches K5 once a chunk into its
+    row (on CPU planes the plain version, with no `K5` span, as
+    `joinagg_scalar`), `fetch` copies the buffer back
+    in one transfer and waits once.  Its caller keeps it to one query at a
+    time (the pinned buffer is the query's until `fetch` returns)."""
+
+    def __init__(self, prog: ScalarProgram, member: dict, planes: list,
+                 nrows: list):
+        self.prog, self.member = prog, member
+        self.planes, self.nrows = planes, [int(n) for n in nrows]
+        self.dev = planes[0][0].device
+        shape = (len(planes), 2 + 2 * prog.n_args)
+        self.out = torch.zeros(shape, dtype=torch.int64, device=self.dev)
+        self.cuda = self.dev.type == "cuda"
+        self.args, self.grids = [], []
+        if not self.cuda:
+            self.host = self.out
+            return
+        for p, n in zip(planes, self.nrows):
+            _check(prog, p, member, n)
+        self.host = torch.zeros(shape, dtype=torch.int64, pin_memory=True)
+        for i, (p, n) in enumerate(zip(planes, self.nrows)):
+            a = k5_args(prog, member)
+            for j, t in enumerate(p):
+                a.plane[j] = t.data_ptr()
+            a.nrows = n
+            a.out = self.out[i].data_ptr()
+            self.args.append(a)
+            self.grids.append(_grid(n, self.dev))
+
+    def set_member(self, member: dict) -> None:
+        if member is self.member:
+            return
+        self.member = member
+        for a in self.args:
+            _set_member(a, member)
+
+    def set_ranges(self, ranges: np.ndarray) -> None:
+        """New bounds for the program's range rows (the same rows, in the
+        same order: only lo and hi may differ)."""
+        self.prog = dataclasses.replace(self.prog, ranges=ranges)
+        for a in self.args:
+            _set_ranges(a, ranges)
+
+    def launch(self) -> None:
+        bump_active("joinagg_scalar_chunks", len(self.planes))
+        if not self.cuda:
+            for i, (p, n) in enumerate(zip(self.planes, self.nrows)):
+                self.out[i] = joinagg_scalar_reference(
+                    self.prog, p, self.member, n)
+            return
+        from .cuda import cuda_error_text
+        lib = _k5_library()
+        with torch.cuda.device(self.dev), span("K5"):
+            stream = ctypes.c_void_p(
+                torch.cuda.current_stream(self.dev).cuda_stream)
+            self.out.zero_()
+            for a, grid, n in zip(self.args, self.grids, self.nrows):
+                if n == 0:
+                    continue
+                rc = lib.pgstrom_k5_launch(ctypes.byref(a), grid, stream)
+                if rc != 0:
+                    raise RuntimeError(
+                        f"K5 launch failed: {cuda_error_text(rc)}")
+                joinagg_scalar_cuda.launches += 1
+
+    def fetch(self) -> np.ndarray:
+        """The rows of the last launch, [nchunks, 2 + 2 * n_args], read
+        back in one transfer (counted in the query's `d2h_reads`)."""
+        bump_active("d2h_reads")
+        if self.cuda:
+            with torch.cuda.device(self.dev):
+                self.host.copy_(self.out, non_blocking=True)
+                torch.cuda.current_stream(self.dev).synchronize()
+        return self.host.numpy().copy()

@@ -25,6 +25,7 @@ from pg_strom_tpu.sql.api import Result as RResult
 from pg_strom_tpu.plan.planner import plan_query as r_plan_query
 from pg_strom_tpu_torch.datastore import from_reference
 from pg_strom_tpu_torch.exec import joinagg_exec
+from pg_strom_tpu_torch.exec.devcache import TCACHE
 from pg_strom_tpu_torch.ops import joinagg_scalar as js
 from pg_strom_tpu_torch.plan.planner import plan_query as p_plan_query
 from pg_strom_tpu_torch.sql import parser as p_ast
@@ -166,6 +167,7 @@ def test_k5_matches_dense_branch_and_reference(dbs, name, monkeypatch):
         host, _ = _run(p_ast, p_plan_query, PResult, sql, pdb)
     with monkeypatch.context() as mp:
         mp.setattr(joinagg_exec, "scalar_program", lambda *a, **k: None)
+        TCACHE.clear()           # drops the K5 launch plans made above
         with P.override(**port):
             dense, dc = _run(p_ast, p_plan_query, PResult, sql, pdb)
     assert got == want, f"port != reference for {sql}\n{got}\n{want}"
@@ -229,3 +231,302 @@ def test_chip_smoke_q1_1_phase_on_cpu(name):
         r = cs.q11_run(db, name, c, 5, 2)
     assert r["variant"] == cs.Q11_CASES[name][2]
     assert r["launches"] == [0, 0] and r["rows"] == cs.q11_expected(name, c)
+
+
+# ---------------------------------------------------------------------------
+# K5's launch plan: one per query shape, reused across constants
+# ---------------------------------------------------------------------------
+
+_PLAN_SQL = ("select sum(fact.a * fact.b), count(*) " + _JOIN +
+             " where dim.y = {y} and fact.b between {lo} and {hi} "
+             "and fact.a < {amax}")
+# name -> the constants (d.y, lo, hi, amax) one shape runs with, in turn
+PLAN_CONSTS = {
+    "probe_ranges": [(1993, 2, 5, 60), (1993, 0, 3, 90), (1993, 4, 9, 25),
+                     (1993, 6, 6, 100)],
+    "build_constants": [(1990, 2, 5, 60), (1993, 2, 5, 60),
+                        (1996, 2, 5, 60), (1991, 2, 5, 60)],
+    "both": [(1992, 1, 4, 45), (1995, 3, 8, 70), (1990, 0, 9, 10),
+             (1994, 5, 5, 95)],
+    # an empty `between` keeps a clause in the predicate program: that
+    # query lowers its own program through the executor's first-query
+    # code, the next hits the plan again
+    "empty_between": [(1993, 2, 5, 60), (1993, 5, 3, 60), (1993, 1, 8, 30)],
+}
+_PORT = dict(device="cpu", debug_force_offload=True, perfmon=True,
+             chunk_rows=CHUNK)
+NCHUNKS = -(-N // CHUNK)
+
+
+def _port(sql, pdb, **cfg):
+    with P.override(**_PORT, **cfg):
+        return _run(p_ast, p_plan_query, PResult, sql, pdb)
+
+
+def _host(sql, pdb, **cfg):
+    with P.override(device="cpu", enabled=False, chunk_rows=CHUNK, **cfg):
+        return _run(p_ast, p_plan_query, PResult, sql, pdb)[0]
+
+
+def _reference(sql, rdb, **cfg):
+    with R.override(enabled=True, chunk_rows=CHUNK,
+                    force_fused_preagg_cpu=True, **cfg):
+        return _run(r_ast, r_plan_query, RResult, sql, rdb)[0]
+
+
+@pytest.mark.parametrize("name", list(PLAN_CONSTS))
+def test_k5_launch_plan_serves_new_constants(dbs, name, monkeypatch):
+    """One shape, new constants each query, two rounds: the first query
+    makes the plan (`k5_plan_builds` 1, once in all); every later query
+    hits it and lowers no program where its build constants were seen
+    before and its ranges lower as the plan's do; every query reads the
+    device once (`d2h_reads`); every answer equals the host-exact tier's
+    and the JAX reference's."""
+    rdb, pdb = dbs
+    TCACHE.clear()
+    consts = PLAN_CONSTS[name]
+    sqls = [_PLAN_SQL.format(y=y, lo=lo, hi=hi, amax=amax)
+            for y, lo, hi, amax in consts]
+    lowered = []
+    real = joinagg_exec.scalar_program
+    monkeypatch.setattr(joinagg_exec, "scalar_program",
+                        lambda *a: lowered.append(1) or real(*a))
+    counts = []
+    for rnd in range(2):
+        for i, sql in enumerate(sqls):
+            del lowered[:]
+            got, pc = _port(sql, pdb)
+            if pc.get("k5_plan_hits"):
+                assert not lowered, sql
+            assert pc.get("d2h_reads") == 1, (sql, pc)
+            assert got == _host(sql, pdb), sql
+            if rnd == 0:
+                assert got == _reference(sql, rdb), sql
+            assert pc.get("joinagg_scalar_chunks") == NCHUNKS, pc
+            assert pc.get("recheck_chunks", 0) == 0, pc
+            counts.append(pc)
+    assert counts[0].get("k5_plan_builds") == 1
+    assert sum(c.get("k5_plan_builds", 0) for c in counts) == 1
+    for i, pc in enumerate(counts):
+        y, lo, hi, _ = consts[i % len(sqls)]
+        seen = i >= len(sqls) or y in {c[0] for c in consts[:i]}
+        assert pc.get("k5_plan_hits", 0) == int(seen and lo <= hi), (i, pc)
+
+
+# (targets, predicate clause) of two queries of one shape but for a
+# constant that K5 reads outside a range: in an argument, or in a clause
+OTHER_CONSTS = {
+    "merged_args": [("sum(fact.a + 1), sum(fact.a + 2)", ""),
+                    ("sum(fact.a + 1), sum(fact.a + 1)", "")],
+    "pred_clause": [("count(*), sum(fact.b)", " and fact.a <> 17"),
+                    ("count(*), sum(fact.b)", " and fact.a <> 40")],
+}
+
+
+@pytest.mark.parametrize("first", [0, 1])
+@pytest.mark.parametrize("name", list(OTHER_CONSTS))
+def test_k5_launch_plan_keeps_other_constants(dbs, name, first):
+    """Two queries that differ only in a constant K5 reads outside a
+    range (two arguments that lower to one where their constants are
+    equal, or a predicate clause's constant), in either order, twice:
+    each makes a plan of its own (`k5_plan_builds` 1) and hits it the
+    second time, and every answer equals the host-exact tier's and the
+    JAX reference's."""
+    rdb, pdb = dbs
+    TCACHE.clear()
+    sqls = [f"select {t} {_JOIN} where dim.y = 1992{c}"
+            for t, c in OTHER_CONSTS[name]]
+    if first:
+        sqls.reverse()
+    for rnd in range(2):
+        for sql in sqls:
+            want = _host(sql, pdb)
+            if rnd == 0:
+                assert want == _reference(sql, rdb), sql
+            got, pc = _port(sql, pdb)
+            assert got == want, (sql, got, want)
+            assert pc.get("k5_plan_builds", 0) == 1 - rnd, (sql, pc)
+            assert pc.get("k5_plan_hits", 0) == rnd, (sql, pc)
+            assert pc.get("joinagg_scalar_chunks") == NCHUNKS, pc
+            assert pc.get("d2h_reads") == 1, pc
+
+
+def _fact_anew(rdb, pdb):
+    """pdb with the fact table replaced: the same values, new columns."""
+    db = P.Database()
+    db.create(pdb.get("dim"))
+    db.create(from_reference(rdb.tables["fact"]))
+    return db
+
+
+@pytest.mark.parametrize("event", ["cache_cleared", "budget_eviction",
+                                   "table_replaced", "join_mxu_lookup"])
+def test_k5_launch_plan_rebuilt_after(dbs, event):
+    """After each event the next query makes the plan anew
+    (`k5_plan_builds` 1, no hit), the one after hits it, and both answer
+    as the host-exact tier."""
+    rdb, pdb = dbs
+    cfg = {"tcache_size_mb": 1} if event == "budget_eviction" else {}
+    TCACHE.clear()
+    sql = _PLAN_SQL.format(y=1993, lo=2, hi=5, amax=60)
+    want = _host(sql, pdb)
+    _port(sql, pdb, **cfg)
+    got, pc = _port(sql, pdb, **cfg)
+    assert got == want and pc.get("k5_plan_hits") == 1, pc
+    db = pdb
+    if event == "cache_cleared":
+        TCACHE.clear()
+    elif event == "budget_eviction":
+        # a table of about 0.95 MiB of planes: fits the 1 MiB budget
+        # alone, not beside the fact table's chunks
+        filler = P.Table.from_columns("filler", {"v": P.column_from_numpy(
+            P.T.INT4, np.arange(200_000, dtype=np.int32))})
+        evictions = TCACHE.evictions
+        db = P.Database()
+        for t in ("fact", "dim"):
+            db.create(pdb.get(t))
+        db.create(filler)
+        _port("select count(*), sum(v) from filler where v > 5", db, **cfg)
+        assert TCACHE.evictions > evictions
+    elif event == "table_replaced":
+        db = _fact_anew(rdb, pdb)
+    else:
+        cfg = {"join_mxu_lookup": False}
+    got, pc = _port(sql, db, **cfg)
+    assert got == want, (got, want)
+    assert pc.get("k5_plan_builds") == 1 and "k5_plan_hits" not in pc, pc
+    got, pc = _port(sql, db, **cfg)
+    assert got == want and pc.get("k5_plan_hits") == 1, pc
+    assert pc.get("d2h_reads") == 1, pc
+
+
+def _replays(monkeypatch) -> list:
+    """The start rows of the chunks the host replays, from now on."""
+    starts: list = []
+    real = joinagg_exec.JoinPreAggExecutor._host_chunk_agg
+
+    def spy(self, cc, *args):
+        starts.append(cc.start)
+        return real(self, cc, *args)
+    monkeypatch.setattr(joinagg_exec.JoinPreAggExecutor, "_host_chunk_agg",
+                        spy)
+    return starts
+
+
+def test_k5_launch_plan_replays_an_err_chunk_alone(dbs, monkeypatch):
+    """A row of the shared buffer with its err lane set (here forced on
+    the last chunk) replays that chunk alone on the host; the other
+    chunks' rows are absorbed from the buffer, and the answer is exact."""
+    from pg_strom_tpu_torch.errors import ERR_INT4_OVERFLOW
+    rdb, pdb = dbs
+    TCACHE.clear()
+    sql = _PLAN_SQL.format(y=1994, lo=1, hi=6, amax=70)
+    want = _host(sql, pdb)
+    _port(sql, pdb)
+    real = js.joinagg_scalar_reference
+    last = N - (NCHUNKS - 1) * CHUNK
+
+    def err_on_last(prog, planes, member, nrows):
+        out = real(prog, planes, member, nrows)
+        if nrows == last:
+            out[0] = ERR_INT4_OVERFLOW
+        return out
+    monkeypatch.setattr(js, "joinagg_scalar_reference", err_on_last)
+    starts = _replays(monkeypatch)
+    got, pc = _port(sql, pdb)
+    assert got == want, (got, want)
+    assert starts == [(NCHUNKS - 1) * CHUNK], starts
+    assert pc.get("k5_plan_hits") == 1 and pc.get("d2h_reads") == 1, pc
+    assert pc.get("recheck_chunks") == 1, pc
+    assert pc.get("device_chunks") == NCHUNKS - 1, pc
+
+
+def test_k5_launch_plan_overflow_raises_as_the_host(dbs, monkeypatch):
+    """The fixture's int4 overflow (big * big on tag 1) met on a planned
+    query: the first chunk whose row sets ERR_INT4_OVERFLOW replays
+    alone and raises PostgreSQL's error, as the host tier and the
+    reference do."""
+    rdb, pdb = dbs
+    TCACHE.clear()
+    sql = "select sum(fact.big * fact.big) " + _JOIN + " where fact.tag = {}"
+    got, pc = _port(sql.format(0), pdb)
+    assert pc.get("k5_plan_builds") == 1, pc
+    starts = _replays(monkeypatch)
+    got, _ = _port(sql.format(1), pdb)
+    assert "out of range" in got
+    assert got == _host(sql.format(1), pdb) == _reference(sql.format(1), rdb)
+    assert starts == [0], starts          # row 7: tag 1, joins key 3
+
+
+@pytest.fixture(scope="module")
+def recheck_dbs(dbs):
+    """dbs with a numeric column on the fact table whose one value past
+    the device's int64 mantissa (row 2700, in the last chunk) makes that
+    chunk replay on the host."""
+    from decimal import Decimal
+    rdb, _ = dbs
+    cols = dict(rdb.tables["fact"].columns)
+    cols["n"] = R.column_from_values(R.T.NUMERIC, [
+        Decimal("123456789012345678901234567890.5") if i == 2700
+        else Decimal(i) for i in range(N)])
+    d = RDatabase()
+    d.create(R.Table.from_columns("fact", cols))
+    d.create(rdb.tables["dim"])
+    return d, from_reference(d)
+
+
+def test_k5_launch_plan_replays_a_recheck_chunk(recheck_dbs, monkeypatch):
+    """A chunk that needs the host (recheck_any) is in no parameter block:
+    each planned query replays it alone and K5 runs the others."""
+    rdb, pdb = recheck_dbs
+    TCACHE.clear()
+    sql = _PLAN_SQL.format(y=1995, lo=0, hi=7, amax=80)
+    want = _host(sql, pdb)
+    assert want == _reference(sql, rdb)
+    got, pc = _port(sql, pdb)
+    assert got == want and pc.get("k5_plan_builds") == 1, pc
+    starts = _replays(monkeypatch)
+    got, pc = _port(sql, pdb)
+    assert got == want, (got, want)
+    assert starts == [(NCHUNKS - 1) * CHUNK], starts
+    assert pc.get("k5_plan_hits") == 1 and pc.get("d2h_reads") == 1, pc
+    assert pc.get("joinagg_scalar_chunks") == NCHUNKS - 1, pc
+    assert pc.get("device_chunks") == NCHUNKS - 1, pc
+
+
+def test_k5_ranges_written_alone_match_a_full_parameter():
+    """The parameter block of a plan whose query changed only range
+    constants (ranges written alone) is byte for byte the one k5_args
+    makes from the new program."""
+    import dataclasses
+    from pg_strom_tpu_torch.expr.ir import BoolExpr, ColumnRef, Const, FuncExpr
+    from pg_strom_tpu_torch.expr.lower_torch import ColMeta
+    from pg_strom_tpu_torch.ops.preagg import AggInstance
+    from pg_strom_tpu_torch.sqltypes import T
+    schema = [ColMeta("k", T.INT4), ColMeta("v", T.INT4)]
+    k, v = ColumnRef(T.INT4, "k", 0), ColumnRef(T.INT4, "v", 1)
+
+    def program(lo, hi):
+        pred = BoolExpr(T.BOOL, "and", (
+            FuncExpr(T.BOOL, ">=::int4,int4", (v, Const(T.INT4, lo))),
+            FuncExpr(T.BOOL, "<::int4,int4", (v, Const(T.INT4, hi))),
+            FuncExpr(T.BOOL, "<=::int4,int4", (k, Const(T.INT4, 60)))))
+        return js.scalar_program(
+            schema, [k], pred,
+            [AggInstance("sum", "i4", ("count", "sum_i"), (v,))], [0, 1],
+            lambda i: False)
+    member = {"bits": torch.zeros(32, dtype=torch.int32), "kmin": 10,
+              "dcap": 1024}
+    p0, p1 = program(-5, 40), program(3, 1 << 30)
+    a = js.k5_args(p0, member)
+    js._set_ranges(a, dataclasses.replace(p0, ranges=p1.ranges).ranges)
+    assert p1.ranges.tolist() != p0.ranges.tolist()
+    assert bytes(a) == bytes(js.k5_args(p1, member))
+
+
+def test_chip_smoke_k5_batch_on_cpu():
+    """chip_smoke.py's K5Batch steps on CPU planes (the plain version runs
+    each chunk): the steps, their programs and their membership tables."""
+    import chip_smoke as cs
+    assert cs.k5_batch_compare(np.random.default_rng(13), 4100,
+                               torch.device("cpu")) == 4

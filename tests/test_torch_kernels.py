@@ -149,3 +149,12 @@ def test_k5_matches_plain_version(cuda_device, name, n):
     chunk; the overflow case sets ERR_INT4_OVERFLOW; each launch counted."""
     cap = 8192 if n == 4099 else n
     assert cs.k5_compare(np.random.default_rng(12), name, n, cap) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4100, 1 << 24])
+def test_k5_batch_matches_plain_version(cuda_device, n):
+    """K5Batch, the launch plan's K5: two chunks in one output buffer, read
+    back once, bit-equal to the plain version through new ranges alone, a
+    program with a predicate clause, and another year's membership."""
+    assert cs.k5_batch_compare(np.random.default_rng(13), n) == 4
