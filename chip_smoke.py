@@ -34,8 +34,9 @@ Phases, in order; any failure raises, exits non-zero and prints no `ok`:
 3c. K3 against its plain version: 2^20 lookups at D in {100, 2048, 40960,
    65536} and K in {1, 2, 4}, with the edge, padding and out-of-range
    indexes: bit-equal;
-3d. K5 against its plain version over K5_CASES (SSB Q1.1's four int4
-   columns joined to the dates of 1993; the same with an int4 overflow on
+3d. K5 (a one-chunk K5Batch, its one launcher) against its plain
+   version over K5_CASES (SSB Q1.1's four int4 columns joined to the
+   dates of 1993; the same with an int4 overflow on
    a joined row; NULLs, int2, float4 and bool columns with OR, NOT and IS
    NULL; merged ranges over a nullable column and keys near both ends
    of int4) at 1, 4099 and 2^26 rows: the output bit-equal, the err lane as
@@ -1055,15 +1056,16 @@ def _k5_case(name: str, rng, n: int, cap: int, dev):
 
 
 def k5_compare(rng, name: str, n: int, cap: int, dev=None) -> int:
-    """K5 against its plain version on the card over one case: the output
-    (err, count(*), per argument count and sum) bit-equal, err as the case
-    expects, one launch counted; returns the max |kernel - plain|."""
+    """K5 through a one-chunk K5Batch against its plain version on the
+    card over one case: the output (err, count(*), per argument count and
+    sum) bit-equal, err as the case expects, one launch counted; returns
+    the max |kernel - plain|."""
     import torch
     from pg_strom_tpu_torch.ops import joinagg_scalar as js
     prog, planes, member = _k5_case(name, rng, n, cap,
                                     dev or torch.device("cuda"))
-    before = js.joinagg_scalar_cuda.launches
-    k = js.joinagg_scalar_cuda(prog, planes, member, n)
+    before = js.K5Batch.launch.launches
+    k = js.K5Batch(prog, member, [planes], [n]).launch()[0]
     p = js.joinagg_scalar_reference(prog, planes, member, n)
     torch.cuda.synchronize()
     err = int((k - p).abs().max().item())
@@ -1073,7 +1075,7 @@ def k5_compare(rng, name: str, n: int, cap: int, dev=None) -> int:
     if int(k[0]) != K5_ERR[name]:
         raise AssertionError(f"K5 {name} n={n}: err lane {int(k[0])}, "
                              f"expected {K5_ERR[name]}")
-    if js.joinagg_scalar_cuda.launches != before + 1:
+    if js.K5Batch.launch.launches != before + 1:
         raise AssertionError("K5's launch counter did not count the launch")
     return err
 
@@ -1142,7 +1144,7 @@ def k5_batch_compare(rng, n: int, dev=None) -> int:
             b = batch
         else:                    # a program of its own: a batch of its own
             b = js.K5Batch(prog, m, chunks, rows)
-        before = js.joinagg_scalar_cuda.launches
+        before = js.K5Batch.launch.launches
         b.launch()
         got = b.fetch()
         want = np.stack([js.joinagg_scalar_reference(prog, c, m, r).cpu()
@@ -1153,15 +1155,16 @@ def k5_batch_compare(rng, n: int, dev=None) -> int:
                                  f"differs from the plain version's "
                                  f"{want.tolist()}")
         if dev.type == "cuda" and \
-                js.joinagg_scalar_cuda.launches != before + len(rows):
+                js.K5Batch.launch.launches != before + len(rows):
             raise AssertionError("K5Batch's launches were not counted")
     return len(steps)
 
 
 def phase_kernels_k5(seed: int, gpu: str) -> dict:
-    """K5 against its plain version over K5_CASES at 1, 4099 (in 8192-row
-    planes) and 2^26 rows, then timed on a 2^26-row chunk of Q1.1's four
-    int4 columns beside its bound and its plain version."""
+    """K5 (a one-chunk K5Batch) against its plain version over K5_CASES
+    at 1, 4099 (in 8192-row planes) and 2^26 rows, then timed on a
+    2^26-row chunk of Q1.1's four int4 columns beside its bound and its
+    plain version."""
     import numpy as np
     import torch
     from pg_strom_tpu_torch.ops import joinagg_scalar as js
@@ -1181,14 +1184,12 @@ def phase_kernels_k5(seed: int, gpu: str) -> dict:
     n = 1 << 26
     prog, planes, member = _k5_case("q1_1", np.random.default_rng(seed), n,
                                     n, torch.device("cuda"))
-    args = js.k5_args(prog, member)
-    out = js.joinagg_scalar_cuda(prog, planes, member, n, args)
-    launches0 = js.joinagg_scalar_cuda.launches
+    batch = js.K5Batch(prog, member, [planes], [n])
+    out = batch.launch()[0].clone()
+    launches0 = js.K5Batch.launch.launches
     p1 = _time(lambda: js.joinagg_scalar_reference(prog, planes, member, n), 3)
-    k1 = _time(lambda: js.joinagg_scalar_cuda(prog, planes, member, n, args),
-               20)
-    k2 = _time(lambda: js.joinagg_scalar_cuda(prog, planes, member, n, args),
-               20)
+    k1 = _time(batch.launch, 20)
+    k2 = _time(batch.launch, 20)
     p2 = _time(lambda: js.joinagg_scalar_reference(prog, planes, member, n), 3)
     if not torch.equal(out, js.joinagg_scalar_reference(prog, planes,
                                                         member, n)):
@@ -1196,7 +1197,7 @@ def phase_kernels_k5(seed: int, gpu: str) -> dict:
                              "version")
     b = _bound(_tensor_bytes(planes), n)
     _log(f"K5 at the Q1.1 chunk ({n} rows, 4 int4 planes, "
-         f"{js.joinagg_scalar_cuda.launches - launches0} timed launches) "
+         f"{js.K5Batch.launch.launches - launches0} timed launches) "
          f"[{gpu}]: kernel {k1:.4f} / {k2:.4f} ms, plain PyTorch {p1:.4f} / "
          f"{p2:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
          f"{b['bound_bytes']:.0f} B at 3.35 TB/s; share "
@@ -1404,7 +1405,7 @@ def q11_run(db, name: str, c, nchunks: int, runs: int) -> dict:
     je.member_table = spy
     try:
         for _ in range(runs):
-            before = js.joinagg_scalar_cuda.launches
+            before = js.K5Batch.launch.launches
             t0 = time.perf_counter()
             with override(perfmon=True, **cfg):
                 pq = plan_query(ast.parse(sql), db)
@@ -1412,7 +1413,7 @@ def q11_run(db, name: str, c, nchunks: int, runs: int) -> dict:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-            launches.append(js.joinagg_scalar_cuda.launches - before)
+            launches.append(js.K5Batch.launch.launches - before)
             counts = dict(pq.perfmon.counts)
             got = [tuple(int(v) for v in r) for r in rows]
             if got != want:
@@ -2449,7 +2450,7 @@ def _zero_launches():
     from pg_strom_tpu_torch.ops import preagg_pallas as pp
     kernels = {"K1": pf2.fused2_cuda, "K2": pf.fused_cuda,
                "K3": ml.mxu_lookup_cuda, "K4": pp.pallas_cuda,
-               "K5": js.joinagg_scalar_cuda}
+               "K5": js.K5Batch.launch}
     for k in kernels.values():
         k.launches = 0
     return kernels

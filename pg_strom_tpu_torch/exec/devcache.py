@@ -20,6 +20,9 @@ same columns.
     shares the same LRU and byte budget through put_aux / get_aux, the
     cross-query extension of the reference's DMA-hashtable-once pattern
     (gpuhashjoin.c:4497-4555).
+  - launch_chunks is the executors' chunk pipeline over chunks_for: every
+    chunk launched, outputs read back a drain at a time, host chunks
+    handed back for replay in their place.
   - Launch plans (put_plan / get_plan) are an executor's state for its
     repeat queries over a cached chunk entry, kept on that entry: they
     leave the cache with it (eviction, replacement, a column garbage
@@ -29,10 +32,11 @@ same columns.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import weakref
 from collections import OrderedDict
-from typing import Any, Iterator, Optional, Sequence
+from typing import Any, Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -375,3 +379,36 @@ class DeviceChunkCache:
 
 
 TCACHE = DeviceChunkCache()
+
+
+def launch_chunks(table: Table, names: Sequence[str], cap: int, pm,
+                  dispatch: Callable[[CachedChunk], Any]
+                  ) -> Iterator[tuple[CachedChunk, Any]]:
+    """The chunk pipeline over the table's chunks as TCACHE.chunks_for
+    serves them.  Each device chunk is launched by `dispatch(cc)` (the
+    caller's `pm.device_call`) in the span `dispatch`; the outputs are read
+    back together, one fetch_host a drain in the span `device_wait`: every
+    `config.max_async_chunks` streamed chunks, which bounds the device
+    memory they hold, and once after the last chunk.  Yields (chunk, its
+    host output) in launch order at each drain, and (chunk, None) for a
+    chunk that needs the host (recheck_any) where it comes, for the
+    caller to replay; the caller may stop early."""
+    pending: list = []
+    streamed = 0
+    for cc in itertools.chain(TCACHE.chunks_for(table, names, cap, pm),
+                              [None]):
+        if cc is not None:
+            if cc.recheck_any:
+                yield cc, None
+                continue
+            with pm.timer("dispatch"):
+                pending.append((cc, dispatch(cc)))
+            streamed += cc.streamed
+            if not cc.streamed or streamed < config.max_async_chunks:
+                continue
+        streamed = 0              # a drain: the window is full, or the end
+        if pending:
+            with pm.timer("device_wait"):
+                outs = fetch_host([out for _, out in pending])
+            drained, pending = pending, []
+            yield from zip([c for c, _ in drained], outs)

@@ -35,7 +35,8 @@ from ..ops.hashjoin import (
     build_hash_table, build_probe_fn, build_probe_dense_fn, dense_cap_for,
     mxu_dense_window, _next_pow2,
 )
-from .devcache import TCACHE, chunk_capacity, device, fetch_host
+from .devcache import TCACHE, chunk_capacity, device, fetch_host, \
+    launch_chunks
 from .hostexec import canon_group_key
 from ..utils.devprog import tiered_capacity
 from ..utils.perfmon import Perfmon
@@ -250,55 +251,34 @@ class HashJoinExecutor:
                     use_mxu=use_mxu, row_bits=row_bits, use_ident=use_ident)
             chain_fn = None if use_dense else get_probe_fn(out_cap)
 
-        # launch every probe chunk, then read the results back in one
-        # transfer per drain; regrows re-run individually (rare).  Streamed
-        # chunks drain every max_async_chunks.
-        pending: list = []
-        streamed = 0
-        for cc in TCACHE.chunks_for(self.probe, pl, pcap, pm):
-            if cc.recheck_any:
-                with pm.timer("cpu_fallback"):
-                    self._host_join_chunk(cc.host_chunk(self.probe), collected)
-                continue
-            with pm.timer("dispatch"):
-                if use_dense:
-                    res = ("dense", pm.device_call(
-                        "tpujoin_probe_dense", dense_fn, ht, cc.planes,
-                        cc.nrows))
-                else:
-                    res = ("chain", pm.device_call(
-                        "tpujoin_probe", chain_fn, ht, cc.planes, cc.nrows))
-            pending.append((cc, res))
-            if cc.streamed:
-                streamed += 1
-                if streamed >= config.max_async_chunks:
-                    self._drain(pending, out_cap, get_probe_fn, ht, collected)
-                    streamed = 0
-        self._drain(pending, out_cap, get_probe_fn, ht, collected)
+        def dispatch(cc):
+            if use_dense:
+                return pm.device_call("tpujoin_probe_dense", dense_fn, ht,
+                                      cc.planes, cc.nrows)
+            return pm.device_call("tpujoin_probe", chain_fn, ht, cc.planes,
+                                  cc.nrows)
+
+        for cc, res in launch_chunks(self.probe, pl, pcap, pm, dispatch):
+            self._consume(cc, res, use_dense, out_cap, get_probe_fn, ht,
+                          collected)
         return True
 
-    def _drain(self, pending, out_cap, get_probe_fn, ht, collected) -> None:
-        if not pending:
-            return
+    def _consume(self, cc, res, use_dense, out_cap, get_probe_fn, ht,
+                 collected) -> None:
+        """Materialize one probe chunk's pairs, or join it on the host (res
+        None: a chunk that needs the host; or its error lane set)."""
         pm = self.perfmon
-        with pm.timer("device_wait"):
-            results = fetch_host([r for _, r in pending])
-        for (cc, _), (kind, rh) in zip(pending, results):
-            if kind == "dense":
-                matched, build_rows, nout, err = rh
-                if int(err) != 0:
-                    pm.bump("recheck_chunks")
-                    with pm.timer("cpu_fallback"):
-                        self._host_join_chunk(cc.host_chunk(self.probe),
-                                              collected)
-                    continue
+        if res is not None and use_dense:
+            matched, build_rows, nout, err = res
+            if int(err) == 0:
                 with pm.timer("materialize"):
                     probe_idx = np.flatnonzero(matched).astype(np.int32)
                     self._materialize(cc.start, probe_idx,
                                       build_rows[probe_idx], collected)
                 pm.bump("device_chunks")
-                continue
-            probe_idx, build_row, nout, err = rh
+                return
+        elif res is not None:
+            probe_idx, build_row, nout, err = res
             cap_now = out_cap
             while int(err) == 0 and int(nout) > cap_now:
                 # DataStoreNoSpace analog: regrow and re-dispatch
@@ -306,17 +286,17 @@ class HashJoinExecutor:
                 cap_now = _next_pow2(int(nout))
                 probe_idx, build_row, nout, err = fetch_host(
                     get_probe_fn(cap_now)(ht, cc.planes, cc.nrows))
-            if int(err) != 0:
-                pm.bump("recheck_chunks")
-                with pm.timer("cpu_fallback"):
-                    self._host_join_chunk(cc.host_chunk(self.probe), collected)
-                continue
-            nout_i = int(nout)
-            with pm.timer("materialize"):
-                self._materialize(cc.start, probe_idx[:nout_i],
-                                  build_row[:nout_i], collected)
-            pm.bump("device_chunks")
-        pending.clear()
+            if int(err) == 0:
+                nout_i = int(nout)
+                with pm.timer("materialize"):
+                    self._materialize(cc.start, probe_idx[:nout_i],
+                                      build_row[:nout_i], collected)
+                pm.bump("device_chunks")
+                return
+        if res is not None:
+            pm.bump("recheck_chunks")
+        with pm.timer("cpu_fallback"):
+            self._host_join_chunk(cc.host_chunk(self.probe), collected)
 
     # -- materialization -----------------------------------------------------
 

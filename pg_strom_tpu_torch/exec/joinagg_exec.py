@@ -31,14 +31,14 @@ from ..expr.lower_torch import ColMeta, schema_from_chunk_columns
 from ..ops.hashjoin import build_hash_table, dense_cap_for, \
     mxu_dense_window, _next_pow2
 from ..ops.joinagg import build_join_preagg_fn, build_join_preagg_pregrouped_fn
-from ..ops.joinagg_scalar import K5Batch, ScalarProgram, \
-    build_join_scalar_fn, conjuncts, member_table, range_clause, \
-    scalar_program, split_ranges
+from ..ops.joinagg_scalar import K5Batch, ScalarProgram, conjuncts, \
+    member_table, range_clause, scalar_program, split_ranges
 from ..ops.mxu_lookup import encode_table, lookup_digits
 from ..ops.preagg import AggInstance, merge_partials
 from ..ops.preagg_mxu import mxu_keys_supported, mxu_dense_supported, \
     mxu_absorb
-from .devcache import TCACHE, chunk_capacity, device, fetch_host
+from .devcache import TCACHE, chunk_capacity, device, fetch_host, \
+    launch_chunks
 from .hostexec import canon_group_key, new_state, update_state
 from .preagg_exec import (absorb_preagg_out, finalize_agg_states,
                           agg_text_dicts, extract_with_dicts)
@@ -210,7 +210,6 @@ class JoinPreAggExecutor:
         # ungrouped over a dense build, inside K5's envelope: the probe and
         # the aggregate in one kernel pass (ops/joinagg_scalar.py), through
         # a launch plan where the probe chunks stay resident
-        scalar = None
         if use_dense and not bound_groups:
             prog = scalar_program(
                 pschema, pkeys, ppred, bound_aggs, probe_slots,
@@ -218,17 +217,17 @@ class JoinPreAggExecutor:
                     self.probe.columns[pnames[i]]).null_count > 0)
             if prog is not None:
                 member_key = ("joinagg_member", ht_key, dcap, use_mxu)
-                scalar = (prog, self._member_table(
-                    ht, member_key, bnames, dcap, use_mxu, row_bits, pm))
+                member = self._member_table(ht, member_key, bnames, dcap,
+                                            use_mxu, row_bits, pm)
                 chunks = TCACHE.cached_chunks(self.probe, pnames, pcap, pm)
                 if chunks and not all(c.recheck_any for c in chunks):
-                    plan = self._k5_plan(*scalar, member_key, chunks, jlayout,
-                                         bound_aggs, pnames, pcap)
+                    plan = self._k5_plan(prog, member, member_key, chunks,
+                                         jlayout, bound_aggs, pnames, pcap)
                     return lambda: self._run_planned(plan)
+                return lambda: self._run_k5(prog, member, pnames, pcap,
+                                            host_args)
 
         def fused(out_cap, strategy=self._strategy, G=None):
-            if scalar is not None:
-                return build_join_scalar_fn(*scalar)
             return build_join_preagg_fn(
                 pschema, pkeys, key_types, nbuckets, max_chain, out_cap,
                 ppred, jschema, probe_slots, build_slots, bound_groups,
@@ -236,43 +235,20 @@ class JoinPreAggExecutor:
                 dense=use_dense, dense_cap=dcap, dense_mxu=use_mxu,
                 dense_row_bits=row_bits)
 
-        # launch every probe chunk, read partials back in one transfer per
-        # drain; retries re-run individually.  Streamed chunks drain every
-        # max_async_chunks.
         fn0 = fused(out_cap0)
 
         def launch() -> list[tuple]:
-            pending: list = []
-            streamed = 0
             consume_args = (key_metas, bound_groups, bound_aggs, host_args)
-            for cc in TCACHE.chunks_for(self.probe, pnames, pcap, pm):
-                if cc.recheck_any:
-                    with pm.timer("cpu_fallback"):
-                        self._host_chunk_agg(cc, *host_args)
-                    continue
-                with pm.timer("dispatch"):
-                    out = pm.device_call("tpujoinagg", fn0, ht, cc.planes,
-                                         bcc.planes, cc.nrows, 0)
-                pending.append((cc, out))
-                if cc.streamed:
-                    streamed += 1
-                    if streamed >= config.max_async_chunks:
-                        self._drain(pending, out_cap0, ht, bcc, fused,
-                                    consume_args)
-                        streamed = 0
-            self._drain(pending, out_cap0, ht, bcc, fused, consume_args)
+            for cc, out in launch_chunks(
+                    self.probe, pnames, pcap, pm,
+                    lambda cc: pm.device_call("tpujoinagg", fn0, ht,
+                                              cc.planes, bcc.planes,
+                                              cc.nrows, 0)):
+                self._consume(cc, out, out_cap0, ht, bcc, fused,
+                              *consume_args)
             return finalize_agg_states(bound_groups, bound_aggs, states,
                                        displays)
         return launch
-
-    def _drain(self, pending, out_cap, ht, bcc, fused, consume_args) -> None:
-        if not pending:
-            return
-        with self.perfmon.timer("device_wait"):
-            outs_host = fetch_host([o for _, o in pending])
-        for (cc, _), oh in zip(pending, outs_host):
-            self._consume(cc, oh, out_cap, ht, bcc, fused, *consume_args)
-        pending.clear()
 
     # -- consume one chunk -------------------------------------------------------
 
@@ -280,8 +256,12 @@ class JoinPreAggExecutor:
                  bound_groups, bound_aggs, host_args) -> None:
         """Retry ladder: regrow (DataStoreNoSpace analog) -> dense_fail
         re-dispatch -> salted buckets at G -> 4x G escalation -> exact sort
-        strategy -> host replay."""
+        strategy -> host replay (at once: out None)."""
         pm = self.perfmon
+        if out is None:
+            with pm.timer("cpu_fallback"):
+                self._host_chunk_agg(cc, *host_args)
+            return
         states, displays = host_args[0], host_args[1]
         lstrat = "mxu" if self._strategy == "mxu_dense" else self._strategy
         ladder = [(self._G, 0x9E3779B97F4A7C15, lstrat)]
@@ -408,10 +388,7 @@ class JoinPreAggExecutor:
         the build side in the plan the entry holds."""
         dev_chunks = [c for c in chunks if not c.recheck_any]
         plan = _K5Plan(
-            batch=K5Batch(prog, member,
-                          [[c.planes[i][0 if plane == "data" else 1]
-                            for i, plane in prog.inputs] for c in dev_chunks],
-                          [c.nrows for c in dev_chunks]),
+            batch=_k5_batch(prog, member, dev_chunks),
             device_chunks=dev_chunks,
             host_chunks=[c for c in chunks if c.recheck_any],
             aggs=bound_aggs, jlayout=jlayout,
@@ -432,8 +409,8 @@ class JoinPreAggExecutor:
 
     def _run_planned(self, plan: "_K5Plan") -> list[tuple]:
         """Launch the plan's batch, read it back once, release the plan,
-        then absorb each chunk's row; a row with K5's err lane set, and a
-        chunk that needs the host (recheck_any), replays alone."""
+        then absorb each chunk's row (_absorb_k5); the chunks that need
+        the host (recheck_any) replay first."""
         pm = self.perfmon
         try:
             with pm.timer("dispatch"):
@@ -446,20 +423,45 @@ class JoinPreAggExecutor:
         displays: dict[tuple, tuple] = {}
         host_args = (states, displays, list(plan.jlayout), [], plan.aggs)
         for cc in plan.host_chunks:
-            with pm.timer("cpu_fallback"):
-                self._host_chunk_agg(cc, *host_args)
+            self._absorb_k5(cc, None, plan.batch.prog, plan.agg_dicts,
+                            host_args)
         for cc, row in zip(plan.device_chunks, rows):
-            if row[0] != 0:
-                pm.bump("recheck_chunks")
-                with pm.timer("cpu_fallback"):
-                    self._host_chunk_agg(cc, *host_args)
-                continue
+            self._absorb_k5(cc, row, plan.batch.prog, plan.agg_dicts,
+                            host_args)
+        return finalize_agg_states([], plan.aggs, states, displays)
+
+    def _run_k5(self, prog, member, pnames, pcap, host_args) -> list[tuple]:
+        """K5 over probe chunks that are not all resident: a one-chunk
+        K5Batch a chunk in the chunk pipeline, each row absorbed by
+        _absorb_k5."""
+        pm = self.perfmon
+        for cc, out in launch_chunks(
+                self.probe, pnames, pcap, pm,
+                lambda cc: pm.device_call(
+                    "tpujoinagg", _k5_batch(prog, member, [cc]).launch)):
+            self._absorb_k5(cc, None if out is None else out[0], prog,
+                            self._agg_dicts_join, host_args)
+        states, displays, _, _, aggs = host_args
+        return finalize_agg_states([], aggs, states, displays)
+
+    def _absorb_k5(self, cc, row, prog: ScalarProgram, agg_dicts,
+                   host_args) -> None:
+        """Absorb one chunk's K5 row (err, count(*), per argument count
+        and sum); a row with its err lane set replays the chunk alone on
+        the host, as does a chunk that needs the host (row None)."""
+        pm = self.perfmon
+        if row is not None and row[0] == 0:
+            states, displays, _, _, aggs = host_args
             absorb_preagg_out(
                 {"gmask": _ONE, "keys": (),
                  "slots": tuple({kind: row[i:i + 1] for kind, i in s_}
-                                for s_ in plan.batch.prog.slots)},
-                [], plan.aggs, [], states, displays, pm, plan.agg_dicts)
-        return finalize_agg_states([], plan.aggs, states, displays)
+                                for s_ in prog.slots)},
+                [], aggs, [], states, displays, pm, agg_dicts)
+            return
+        if row is not None:
+            pm.bump("recheck_chunks")
+        with pm.timer("cpu_fallback"):
+            self._host_chunk_agg(cc, *host_args)
 
     # -- star-schema pregrouped path ------------------------------------------
 
@@ -574,7 +576,7 @@ class JoinPreAggExecutor:
         seg_disp: dict[tuple, tuple] = {}
 
         def consume(cc, out):
-            if int(out["err"]) == 0 and \
+            if out is not None and int(out["err"]) == 0 and \
                     not bool(np.asarray(out.get("dense_fail", False))):
                 collided, overflow = mxu_absorb(
                     out, [seg_ref], aggs_pre, [None], seg_states, seg_disp,
@@ -582,38 +584,20 @@ class JoinPreAggExecutor:
                 if not (collided or overflow):
                     pm.bump("device_chunks")
                     return
-            # a device error, or (impossible by construction with dense
-            # seg ids) a collision: replay the chunk host-exactly
-            pm.bump("recheck_chunks")
+            # a chunk that needs the host (out None), a device error, or
+            # (impossible by construction with dense seg ids) a collision:
+            # replay the chunk host-exactly
+            if out is not None:
+                pm.bump("recheck_chunks")
             with pm.timer("cpu_fallback"):
                 self._host_chunk_agg(cc, *host_args)
 
-        def drain(pending):
-            with pm.timer("device_wait"):
-                outs = fetch_host([o for _, o in pending])
-            for (cc2, _), oh in zip(pending, outs):
-                consume(cc2, oh)
-            pending.clear()
-
         def launch() -> list[tuple]:
-            pending: list = []
-            streamed = 0
-            for cc in TCACHE.chunks_for(self.probe, pnames, pcap, pm):
-                if cc.recheck_any:
-                    with pm.timer("cpu_fallback"):
-                        self._host_chunk_agg(cc, *host_args)
-                    continue
-                with pm.timer("dispatch"):
-                    out = pm.device_call("tpujoinagg_pregrouped", fn, ht2,
-                                         cc.planes, cc.nrows, 0)
-                pending.append((cc, out))
-                if cc.streamed:
-                    streamed += 1
-                    if streamed >= config.max_async_chunks:
-                        drain(pending)
-                        streamed = 0
-            if pending:
-                drain(pending)
+            for cc, out in launch_chunks(
+                    self.probe, pnames, pcap, pm,
+                    lambda cc: pm.device_call("tpujoinagg_pregrouped", fn,
+                                              ht2, cc.planes, cc.nrows, 0)):
+                consume(cc, out)
 
             # translate seg ids -> enumerated dimension key tuples, then merge
             # with any host-replayed groups (keyed by the real values)
@@ -715,6 +699,14 @@ class JoinPreAggExecutor:
 
 _ONE = np.ones(1, dtype=bool)
 _MAX_MEMBERS = 256       # build sides a launch plan keeps membership keys of
+
+
+def _k5_batch(prog: ScalarProgram, member: dict, chunks) -> K5Batch:
+    """K5 over the chunks, each one's planes in prog.inputs order."""
+    return K5Batch(prog, member,
+                   [[c.planes[i][0 if plane == "data" else 1]
+                     for i, plane in prog.inputs] for c in chunks],
+                   [c.nrows for c in chunks])
 
 
 @dataclasses.dataclass(eq=False)

@@ -38,7 +38,8 @@ from ..ops.preagg import (
 )
 from ..ops.preagg_mxu import (mxu_keys_supported, mxu_dense_supported,
                               mxu_absorb)
-from .devcache import TCACHE, CachedChunk, chunk_capacity, device, fetch_host
+from .devcache import CachedChunk, chunk_capacity, device, fetch_host, \
+    launch_chunks
 from .hostexec import replay_chunk_preagg, canon_group_key, new_state
 from ..utils.perfmon import Perfmon, spanned
 from ..utils.devprog import tiered_capacity
@@ -157,30 +158,16 @@ class PreAggExecutor:
         with pm.timer("prepare"):
             key_metas, cap, fn = self._prepare()
 
-        # launch every chunk, then read the results back in one transfer;
-        # streamed (uncached) chunks drain every max_async_chunks to bound
-        # the device memory they hold
-        pending: list = []
-        streamed = 0
-        for cc in TCACHE.chunks_for(self.table, self.layout_names, cap, pm):
-            if cc.recheck_any:
-                with pm.timer("cpu_fallback"):
-                    self._replay(cc.host_chunk(self.table), states, displays)
-                continue
-            with pm.timer("dispatch"):
-                if self._v2 is not None:
-                    out = pm.device_call("tpupreagg", fn, cc.planes,
-                                         cc.nrows, 0, self._v2_scal())
-                else:
-                    out = pm.device_call("tpupreagg", fn, cc.planes,
-                                         cc.nrows, self._salt0)
-            pending.append((cc, out))
-            if cc.streamed:
-                streamed += 1
-                if streamed >= config.max_async_chunks:
-                    self._drain(pending, states, displays, key_metas)
-                    streamed = 0
-        self._drain(pending, states, displays, key_metas)
+        def dispatch(cc):
+            if self._v2 is not None:
+                return pm.device_call("tpupreagg", fn, cc.planes, cc.nrows,
+                                      0, self._v2_scal())
+            return pm.device_call("tpupreagg", fn, cc.planes, cc.nrows,
+                                  self._salt0)
+
+        for cc, out in launch_chunks(self.table, self.layout_names, cap, pm,
+                                     dispatch):
+            self._consume(cc, out, states, displays, key_metas)
         return states, displays
 
     def _prepare(self):
@@ -252,15 +239,6 @@ class PreAggExecutor:
         fn = self._fn(G, self._strategy)
         return key_metas, cap, fn
 
-    def _drain(self, pending, states, displays, key_metas) -> None:
-        if not pending:
-            return
-        with self.perfmon.timer("device_wait"):
-            outs_host = fetch_host([o for _, o in pending])
-        for (cc, _), oh in zip(pending, outs_host):
-            self._consume(cc, oh, states, displays, key_metas)
-        pending.clear()
-
     # ------------------------------------------------------------------
 
     def _fn(self, G: int, strategy: str, v2: bool = True):
@@ -313,8 +291,12 @@ class PreAggExecutor:
     def _consume(self, cc: CachedChunk, out, states, displays,
                  key_metas) -> None:
         """Retry ladder per chunk: salted buckets at G, 4x G escalation,
-        the exact sort strategy, then host replay."""
+        the exact sort strategy, then host replay (at once: out None)."""
         pm = self.perfmon
+        if out is None:
+            with pm.timer("cpu_fallback"):
+                self._replay(cc.host_chunk(self.table), states, displays)
+            return
         # (G, salt) ladder: re-salt once, escalate bucket count (column-sum
         # cost scales with G, so start small), then sort-exact
         ladder = [(self._G, 0x9E3779B97F4A7C15)]

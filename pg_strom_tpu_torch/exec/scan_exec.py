@@ -21,7 +21,7 @@ from ..expr.catalog import device_expression_supported
 from ..expr.eval_cpu import eval_expr_cpu
 from ..expr.lower_torch import schema_from_chunk_columns
 from ..ops.filter import build_filter_mask_fn, unpack_maskbits
-from .devcache import TCACHE, CachedChunk, chunk_capacity, fetch_host
+from .devcache import CachedChunk, chunk_capacity, launch_chunks
 from ..utils.perfmon import Perfmon
 
 
@@ -60,46 +60,25 @@ class ScanExecutor:
             schema = schema_from_chunk_columns(
                 names, [t.columns[n] for n in names])
             fn = build_filter_mask_fn(self.pred, schema)
-        # launch every chunk, read the masks back in one transfer per drain;
-        # streamed chunks drain every max_async_chunks to bound the device
-        # memory they hold
-        pending: list = []
-        streamed = 0
-        for cc in TCACHE.chunks_for(t, names, chunk_capacity(t.nrows), pm):
-            if cc.recheck_any:
-                with pm.timer("cpu_fallback"):
-                    out.append(self._replay(cc.host_chunk(t)))
-                continue
-            with pm.timer("dispatch"):
-                res = pm.device_call("tpuscan_qual", fn, cc.planes, cc.nrows)
-            pending.append((cc, res))
-            if cc.streamed:
-                streamed += 1
-                if streamed >= config.max_async_chunks:
-                    self._drain(pending, out)
-                    streamed = 0
-        self._drain(pending, out)
+        for cc, res in launch_chunks(
+                t, names, chunk_capacity(t.nrows), pm,
+                lambda cc: pm.device_call("tpuscan_qual", fn, cc.planes,
+                                          cc.nrows)):
+            out.append(self._consume(cc, res))
         return np.concatenate(out) if out else np.empty(0, np.int64)
 
-    def _drain(self, pending, out: list[np.ndarray]) -> None:
-        if not pending:
-            return
-        with self.perfmon.timer("device_wait"):
-            results = fetch_host([r for _, r in pending])
-        for (cc, _), rh in zip(pending, results):
-            out.append(self._consume(cc, rh))
-        pending.clear()
-
     def _consume(self, cc: CachedChunk, res) -> np.ndarray:
+        """One chunk's row indexes: from its mask, or replayed on the host
+        (res None: a chunk that needs the host; or its error lane set)."""
         pm = self.perfmon
-        maskbits, nmatch, err = res
-        if int(err) != 0:
+        if res is not None and int(res[2]) == 0:
+            pm.bump("device_chunks")
+            bits = unpack_maskbits(res[0], cc.nrows)
+            return np.flatnonzero(bits) + cc.start
+        if res is not None:
             pm.bump("recheck_chunks")
-            with pm.timer("cpu_fallback"):
-                return self._replay(cc.host_chunk(self.table))
-        pm.bump("device_chunks")
-        bits = unpack_maskbits(maskbits, cc.nrows)
-        return np.flatnonzero(bits) + cc.start
+        with pm.timer("cpu_fallback"):
+            return self._replay(cc.host_chunk(self.table))
 
     def _replay(self, chunk: Chunk) -> np.ndarray:
         names = self.table.column_names

@@ -45,7 +45,8 @@ from ..ops.starjoin import build_star_join_preagg_fn
 from ..ops.preagg import AggInstance, merge_partials
 from ..ops.preagg_mxu import mxu_keys_supported, mxu_dense_supported, \
     mxu_absorb
-from .devcache import TCACHE, chunk_capacity, device, fetch_host
+from .devcache import TCACHE, chunk_capacity, device, fetch_host, \
+    launch_chunks
 from .hostexec import canon_group_key, new_state, update_state
 from .preagg_exec import absorb_preagg_out, finalize_agg_states, \
     agg_text_dicts, extract_with_dicts
@@ -322,37 +323,15 @@ class StarJoinAggExecutor:
 
             consume_args = (states, displays, key_metas, jnames, jlayout,
                             bound_groups, bound_aggs, hts_t, bplanes, fused)
-            pending: list = []
-            streamed = 0
-            for cc in TCACHE.chunks_for(self.probe, pnames, pcap, pm):
-                if cc.recheck_any:
-                    with pm.timer("cpu_fallback"):
-                        self._host_chunk_agg(cc, states, displays,
-                                             jnames, jlayout, bound_groups,
-                                             bound_aggs)
-                    continue
-                with pm.timer("dispatch"):
-                    out = pm.device_call("tpustarjoinagg", fused(), hts_t,
-                                         cc.planes, bplanes, cc.nrows, 0)
-                pending.append((cc, out))
-                if cc.streamed:
-                    streamed += 1
-                    if streamed >= config.max_async_chunks:
-                        self._drain(pending, consume_args)
-                        streamed = 0
-            self._drain(pending, consume_args)
+            for cc, out in launch_chunks(
+                    self.probe, pnames, pcap, pm,
+                    lambda cc: pm.device_call("tpustarjoinagg", fused(),
+                                              hts_t, cc.planes, bplanes,
+                                              cc.nrows, 0)):
+                self._consume(cc, out, *consume_args)
             return finalize_agg_states(bound_groups, bound_aggs, states,
                                        displays)
         return launch
-
-    def _drain(self, pending, consume_args) -> None:
-        if not pending:
-            return
-        with self.perfmon.timer("device_wait"):
-            outs_host = fetch_host([o for _, o in pending])
-        for (cc, _), oh in zip(pending, outs_host):
-            self._consume(cc, oh, *consume_args)
-        pending.clear()
 
     def _run_distributed(self, pnames, pschema, ppred, jschema, probe_slots,
                          build_slot_map, bound_groups, bound_aggs, hts_t,
@@ -511,8 +490,13 @@ class StarJoinAggExecutor:
         """Absorb one chunk's slice outputs with the standard retry
         ladders.  Slices stage into scratch accumulators and commit only
         when EVERY slice absorbed: a mid-slice redispatch must not
-        double-count the already-absorbed ones."""
+        double-count the already-absorbed ones.  Out None: host replay."""
         pm = self.perfmon
+        if out is None:
+            with pm.timer("cpu_fallback"):
+                self._host_chunk_agg(cc, states, displays, jnames, jlayout,
+                                     bound_groups, bound_aggs)
+            return
         lstrat = "mxu" if self._strategy == "mxu_dense" else self._strategy
         ladder = [(self._G, 0x9E3779B97F4A7C15, lstrat)]
         G2 = min(4 * self._G, config.max_groups_cap)

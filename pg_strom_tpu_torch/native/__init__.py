@@ -5,9 +5,10 @@ The source, `src/pgstrom_native.cc`, is the reference's own
 reference's library.  The library builds at first use with one g++ call
 (`g++ -O3 -fPIC -std=c++17 -pthread -shared`) into
 `pg_strom_tpu_torch/_build/` (listed in .gitignore), under a name keyed by
-a hash of the source and the flags, and moves into place with an atomic
-rename, so processes that build at once never load a half-written file.
-A failed build raises.
+a hash of the source and the flags, and is published there by a hard link
+(utils/libbuild.publish), so processes that build at once never load a
+half-written file nor one another process replaced.  A failed build
+raises.
 
 Components: Arena (buddy allocator + resource tracking, with a slab tier),
 MQueue, Pool (worker threads), CSV loaders, pg_crc32, PgRandom (glibc
@@ -26,6 +27,8 @@ import threading
 from typing import Sequence
 
 import numpy as np
+
+from ..utils.libbuild import publish
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src", "pgstrom_native.cc")
@@ -62,8 +65,7 @@ def build() -> str:
         if r.returncode != 0:
             raise RuntimeError(f"g++ failed (exit {r.returncode}):\n"
                                f"{r.stdout}{r.stderr}")
-        os.replace(tmp, so)
-    return so
+        return publish(tmp, so)
 
 
 def lib() -> ctypes.CDLL:

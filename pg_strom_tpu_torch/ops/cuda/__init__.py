@@ -7,9 +7,9 @@ it builds in seconds); ctypes binds it, and the wrappers pass
 `data_ptr()`s and PyTorch's current stream.  The library is built at first
 use into `pg_strom_tpu_torch/_build/` (listed in .gitignore), under a name
 keyed by a hash of every `.cu` and `.cuh` file of the directory and the
-flags (an edited header rebuilds too), and moved into place with an
-atomic rename so that concurrent processes never load a half-written
-file.  A missing nvcc, a failed build or a failed launch raises: no kernel
+flags (an edited header rebuilds too), and published there by a hard
+link (utils/libbuild.publish), so that concurrent processes never load a
+half-written file nor one another process replaced.  A missing nvcc, a failed build or a failed launch raises: no kernel
 gives way to its plain version.
 
   K1  preagg_fused2.cu    fused pre-aggregation over raw column planes
@@ -32,6 +32,8 @@ import subprocess
 import tempfile
 import threading
 import time
+
+from ...utils.libbuild import publish
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
@@ -110,7 +112,7 @@ def build() -> str:
         if r.returncode != 0:
             raise RuntimeError(f"nvcc link failed (exit {r.returncode}):\n"
                                f"{r.stdout}{r.stderr}")
-        os.replace(tmp, so)
+        publish(tmp, so)
     build_seconds = time.perf_counter() - t0
     build_log = "\n".join(logs)
     return so

@@ -27,21 +27,17 @@ this module declines.
 * `member_table` turns whichever dense variant the build table holds (the
   identity, K3's table against its sentinel, or the plain table) into a
   bitmap of the window; the executor caches it beside the table.
-* `joinagg_scalar` runs the kernel (ops/cuda/joinagg_scalar.cu) on a CUDA
-  chunk, or raises, and its plain PyTorch version
-  (`joinagg_scalar_reference`) on a CPU chunk.  Both return int64
-  [2 + 2 * n_args]: the err lane, count(*), then (count, sum) of each
+* `joinagg_scalar_reference` is K5's plain PyTorch version: int64
+  [2 + 2 * n_args], the err lane, count(*), then (count, sum) of each
   argument; an argument that leaves its type's range on a joined row with
   no NULL operand sets ERR_INT2_OVERFLOW / ERR_INT4_OVERFLOW, and the
   chunk replays on the host.
-* `build_join_scalar_fn` is the device function the executor dispatches:
-  the ungrouped preagg output dict (`err`, `collision`, `ngroups`,
-  `gmask`, `keys`, `slots`, `nout`), as joinagg.build_join_preagg_fn's
-  dense branch emits it.
-* `K5Batch` runs K5 for a launch plan (exec/joinagg_exec.py) over the
-  resident chunks of a repeated query shape: a parameter block a chunk
-  made once, the constants written in place, one output buffer read
-  back in one copy.
+* `K5Batch` is the one launcher of the kernel (ops/cuda/joinagg_scalar.cu)
+  on CUDA chunks, and of the plain version on CPU chunks: a parameter
+  block a chunk made once, the constants written in place, one output
+  row a chunk.  The executor (exec/joinagg_exec.py) keeps one for a
+  launch plan over the resident chunks of a repeated query shape, read
+  back in one copy, and makes a one-chunk batch for each streamed chunk.
 """
 
 from __future__ import annotations
@@ -516,87 +512,20 @@ def _check(prog: ScalarProgram, planes, member: dict, nrows: int) -> None:
             f", bitmap {bits.dtype} {tuple(bits.shape)} on {bits.device}")
 
 
-def joinagg_scalar_cuda(prog: ScalarProgram, planes, member: dict,
-                        nrows: int, args: Optional[_K5Args] = None
-                        ) -> torch.Tensor:
-    """Launch K5: the same int64 [2 + 2 * n_args] as
-    joinagg_scalar_reference.  Raises on a bad input, a build or a launch
-    failure."""
-    from .cuda import cuda_error_text
-    _check(prog, planes, member, nrows)
-    dev = planes[0].device
-    if args is None:
-        args = k5_args(prog, member)
-    grid = _grid(nrows, dev)
-    lib = _k5_library()
-    with torch.cuda.device(dev), span("K5"):
-        out = torch.zeros(2 + 2 * prog.n_args, dtype=torch.int64,
-                          device=dev)
-        if nrows == 0:
-            return out
-        for i, p in enumerate(planes):
-            args.plane[i] = p.data_ptr()
-        args.nrows = nrows
-        args.out = out.data_ptr()
-        rc = lib.pgstrom_k5_launch(
-            ctypes.byref(args), grid,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"K5 launch failed: {cuda_error_text(rc)}")
-    joinagg_scalar_cuda.launches += 1
-    return out
-
-
-joinagg_scalar_cuda.launches = 0   # main-path launch count (chip_smoke.py)
-
-
-def joinagg_scalar(prog: ScalarProgram, planes, member: dict, nrows: int,
-                   args: Optional[_K5Args] = None) -> torch.Tensor:
-    """K5 over one chunk: the kernel on CUDA planes, the plain version on
-    CPU planes."""
-    dev = planes[0].device
-    if dev.type == "cuda":
-        return joinagg_scalar_cuda(prog, planes, member, nrows, args)
-    if dev.type == "cpu":
-        return joinagg_scalar_reference(prog, planes, member, nrows)
-    raise RuntimeError(f"K5 has no kernel for device {dev}")
-
-
-def build_join_scalar_fn(prog: ScalarProgram, member: dict) -> Callable:
-    """f(ht, pcols, bcols, nrows, salt) -> the ungrouped preagg output dict
-    of one probe chunk (+ 'nout' = 0), computed by K5."""
-    planes_of = [(idx, 0 if plane == "data" else 1)
-                 for idx, plane in prog.inputs]
-    args = (k5_args(prog, member) if member["bits"].device.type == "cuda"
-            else None)
-    const = {"collision": torch.tensor(False),
-             "ngroups": torch.tensor(1, dtype=torch.int32),
-             "gmask": torch.ones(1, dtype=torch.bool), "keys": (),
-             "nout": torch.tensor(0, dtype=torch.int32)}
-
-    def f(ht: dict, pcols: tuple, bcols: tuple, nrows, salt):
-        out = joinagg_scalar(prog, [pcols[i][k] for i, k in planes_of],
-                             member, int(nrows), args)
-        bump_active("joinagg_scalar_chunks")
-        return {"err": out[0],
-                "slots": tuple({kind: out[i:i + 1] for kind, i in s}
-                               for s in prog.slots),
-                **const}
-
-    return f
-
-
 class K5Batch:
-    """K5 over a fixed list of resident chunks, for a launch plan's
-    queries.  Made once: a parameter block per chunk with its planes, rows
-    and output row filled in, one int64 [nchunks, 2 + 2 * n_args] buffer
-    on the device and, on CUDA, a pinned host twin of it.  Per query:
+    """K5 over a fixed list of chunks.  Made once: a parameter block per
+    chunk with its planes, rows and output row filled in, and one int64
+    [nchunks, 2 + 2 * n_args] buffer on the device.  Per query:
     `set_member` and `set_ranges` write what the query's constants reach,
     `launch` zeroes the buffer once and launches K5 once a chunk into its
-    row (on CPU planes the plain version, with no `K5` span, as
-    `joinagg_scalar`), `fetch` copies the buffer back
-    in one transfer and waits once.  Its caller keeps it to one query at a
-    time (the pinned buffer is the query's until `fetch` returns)."""
+    row (on CPU planes the plain version, with no `K5` span) and returns
+    the buffer, `fetch` copies it back through a pinned host twin (made
+    at the first fetch) in one transfer and waits once.  Its caller keeps
+    it to one query at a time (the pinned buffer is the query's until
+    `fetch` returns).  `K5Batch.launch.launches` counts the kernel's
+    launches: an attribute of the function, as the other kernels keep
+    theirs, since writing a class attribute on every launch invalidates
+    the class's type caches and slows the whole host path."""
 
     def __init__(self, prog: ScalarProgram, member: dict, planes: list,
                  nrows: list):
@@ -610,10 +539,9 @@ class K5Batch:
         if not self.cuda:
             self.host = self.out
             return
-        for p, n in zip(planes, self.nrows):
-            _check(prog, p, member, n)
-        self.host = torch.zeros(shape, dtype=torch.int64, pin_memory=True)
+        self.host = None
         for i, (p, n) in enumerate(zip(planes, self.nrows)):
+            _check(prog, p, member, n)
             a = k5_args(prog, member)
             for j, t in enumerate(p):
                 a.plane[j] = t.data_ptr()
@@ -636,13 +564,14 @@ class K5Batch:
         for a in self.args:
             _set_ranges(a, ranges)
 
-    def launch(self) -> None:
+    def launch(self) -> torch.Tensor:
+        """Run K5 over every chunk; the output buffer, on the device."""
         bump_active("joinagg_scalar_chunks", len(self.planes))
         if not self.cuda:
             for i, (p, n) in enumerate(zip(self.planes, self.nrows)):
                 self.out[i] = joinagg_scalar_reference(
                     self.prog, p, self.member, n)
-            return
+            return self.out
         from .cuda import cuda_error_text
         lib = _k5_library()
         with torch.cuda.device(self.dev), span("K5"):
@@ -656,14 +585,21 @@ class K5Batch:
                 if rc != 0:
                     raise RuntimeError(
                         f"K5 launch failed: {cuda_error_text(rc)}")
-                joinagg_scalar_cuda.launches += 1
+                K5Batch.launch.launches += 1
+        return self.out
 
     def fetch(self) -> np.ndarray:
         """The rows of the last launch, [nchunks, 2 + 2 * n_args], read
         back in one transfer (counted in the query's `d2h_reads`)."""
         bump_active("d2h_reads")
         if self.cuda:
+            if self.host is None:
+                self.host = torch.zeros(self.out.shape, dtype=torch.int64,
+                                        pin_memory=True)
             with torch.cuda.device(self.dev):
                 self.host.copy_(self.out, non_blocking=True)
                 torch.cuda.current_stream(self.dev).synchronize()
         return self.host.numpy().copy()
+
+
+K5Batch.launch.launches = 0      # main-path launch count (chip_smoke.py)

@@ -1187,7 +1187,8 @@ def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
     the k winning rows.  Returns None when not device-eligible (caller runs
     the host path)."""
     import numpy as np
-    from ..exec.devcache import TCACHE, chunk_capacity, device, fetch_host
+    from ..exec.devcache import chunk_capacity, device, fetch_host, \
+        launch_chunks
     from ..expr.lower_torch import schema_from_chunk_columns
     from ..ops.sort import build_sort_topk_fn, SortSpec
     from ..utils.devprog import tiered_capacity
@@ -1220,31 +1221,14 @@ def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
     with perfmon.timer("prepare"):
         fn = build_sort_topk_fn(schema, specs, bpred, min(k, cap))
 
-    pending = []
-    streamed = 0
     results = []
-
-    def drain():
-        if not pending:
-            return
-        with perfmon.timer("device_wait"):
-            results.extend(zip([cc for cc, _ in pending],
-                               fetch_host([r for _, r in pending])))
-        pending.clear()
-
-    for cc in TCACHE.chunks_for(cur, names, cap, perfmon):
-        if cc.recheck_any:
+    for cc, res in launch_chunks(
+            cur, names, cap, perfmon,
+            lambda cc: perfmon.device_call("tpusort_topk", fn, cc.planes,
+                                           cc.nrows)):
+        if res is None:
             return None                # mixed host/device merge: host path
-        with perfmon.timer("dispatch"):
-            res = perfmon.device_call("tpusort_topk", fn, cc.planes,
-                                      cc.nrows)
-        pending.append((cc, res))
-        if cc.streamed:
-            streamed += 1
-            if streamed >= config.max_async_chunks:
-                drain()
-                streamed = 0
-    drain()
+        results.append((cc, res))
 
     def exact_rerun(cc):
         """Prefix-tie overflow (threshold route) or a key set the adaptive

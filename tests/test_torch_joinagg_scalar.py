@@ -186,10 +186,11 @@ def test_k5_matches_dense_branch_and_reference(dbs, name, monkeypatch):
 
 
 def test_k5_twin_nrows_and_overflow_lane():
-    """The plain version alone: rows at or past nrows never count (their
-    keys join and their product overflows), an overflow on a row the
-    predicate drops sets no error, one on a joined row sets
-    ERR_INT4_OVERFLOW; the output is (err, count(*), count, sum)."""
+    """The plain version alone, through a one-chunk K5Batch on CPU
+    planes: rows at or past nrows never count (their keys join and their
+    product overflows), an overflow on a row the predicate drops sets no
+    error, one on a joined row sets ERR_INT4_OVERFLOW; the output is
+    (err, count(*), count, sum)."""
     from pg_strom_tpu_torch.errors import ERR_INT4_OVERFLOW
     from pg_strom_tpu_torch.expr.ir import ColumnRef, Const, FuncExpr
     from pg_strom_tpu_torch.expr.lower_torch import ColMeta
@@ -213,11 +214,13 @@ def test_k5_twin_nrows_and_overflow_lane():
     vv = torch.tensor([3, 4, 5, 50000, 7, 60000], dtype=torch.int32)
     prog = program("<", 1000)             # drops the row of 50000
     assert prog is not None and prog.n_args == 1
-    assert js.joinagg_scalar(prog, [kk, vv], member, 4).tolist() == \
-        [0, 2, 2, 9 + 25]
-    out = js.joinagg_scalar(program(">", 0), [kk, vv], member, 4)
+
+    def k5(prog, nrows):
+        return js.K5Batch(prog, member, [[kk, vv]], [nrows]).launch()[0]
+    assert k5(prog, 4).tolist() == [0, 2, 2, 9 + 25]
+    out = k5(program(">", 0), 4)
     assert out[0].item() == ERR_INT4_OVERFLOW and out[1].item() == 3
-    assert js.joinagg_scalar(prog, [kk, vv], member, 0).tolist() == [0] * 4
+    assert k5(prog, 0).tolist() == [0] * 4
 
 
 @pytest.mark.parametrize("name", ["q1_1", "q1_1_plain", "qty_identity"])

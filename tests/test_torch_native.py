@@ -258,31 +258,47 @@ def test_port_builds_its_own_library():
         assert a.read() == b.read()      # a verbatim copy of the source
 
 
-def test_concurrent_builds_land_one_library(tmp_path):
+def test_concurrent_builds_land_one_library(tmp_path, tmp_path_factory):
     """Processes that build at once (tier-1's xdist workers) each compile
-    to a temporary name and rename into place: every one loads a whole
-    library from the same path."""
+    to a temporary name and publish it by a hard link, the first one's
+    kept: every one loads a whole library from the same path, and once
+    all have loaded it no process's mapping of it reads `(deleted)` (a
+    later build never replaced the file under an earlier one)."""
     import subprocess
     import sys
-    code = ("import sys, pg_strom_tpu_torch.native as N; "
-            "N._BUILD_DIR = sys.argv[1]; p = N.build(); "
-            "import ctypes; L = ctypes.CDLL(p); "
-            "L.pg_crc32.restype = ctypes.c_uint32; "
-            "L.pg_crc32.argtypes = [ctypes.c_char_p, ctypes.c_uint64]; "
-            "print(p, L.pg_crc32(b'123456789', 9))")
+    code = "\n".join([
+        "import ctypes, os, sys, time",
+        "import pg_strom_tpu_torch.native as N",
+        "N._BUILD_DIR = sys.argv[1]; p = N.build()",
+        "L = ctypes.CDLL(p)",
+        "L.pg_crc32.restype = ctypes.c_uint32",
+        "L.pg_crc32.argtypes = [ctypes.c_char_p, ctypes.c_uint64]",
+        "print(p, L.pg_crc32(b'123456789', 9))",
+        "open(os.path.join(sys.argv[2], str(os.getpid())), 'w').close()",
+        "t = time.time()",
+        "while len(os.listdir(sys.argv[2])) < 3 and time.time() - t < 120:",
+        "    time.sleep(0.05)",
+        "with open('/proc/self/maps') as f:",
+        "    print(sorted({ln.split(None, 5)[-1].strip() for ln in f",
+        "                  if os.path.basename(p) in ln}))"])
+    sync = tmp_path_factory.mktemp("loaded")
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(p_native.__file__))))
     env = dict(os.environ, PYTHONPATH=root)
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)],
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path),
+                               str(sync)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env=env) for _ in range(3)]
     outs = [p.communicate(timeout=300) for p in procs]
     assert all(p.returncode == 0 for p in procs), outs
-    lines = {o.strip() for o, _ in outs}
+    lines = {o.splitlines()[0].strip() for o, _ in outs}
     assert len(lines) == 1, lines
     assert lines.pop().endswith(str(0xCBF43926))
     assert [f for f in os.listdir(tmp_path)] == [
         os.path.basename(p_native.library_path())]
+    so = str(tmp_path / os.path.basename(p_native.library_path()))
+    for o, _ in outs:
+        assert o.splitlines()[1] == repr([so]), o
 
 
 # --- the two modules give the same answers ----------------------------------
